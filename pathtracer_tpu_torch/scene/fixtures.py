@@ -1,0 +1,31 @@
+"""Scene fixture resolution: the repo is self-contained.
+
+`scenes/` at the repo root carries the scene descriptions, the teapot / cow /
+alien meshes and the golden render, so every test and demo of the port runs
+from the checkout alone.
+"""
+from __future__ import annotations
+
+import os
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+REPO_SCENES = os.path.join(REPO_ROOT, "scenes")
+
+
+def scene_path(name: str) -> str:
+    """Resolve a scene JSON (e.g. "cornell" or "cornell.json") to a path."""
+    if not name.endswith(".json"):
+        name += ".json"
+    p = os.path.join(REPO_SCENES, name)
+    if not os.path.exists(p):
+        raise FileNotFoundError(f"scene '{name}' not found in {REPO_SCENES}")
+    return p
+
+
+def model_path(name: str) -> str:
+    """Resolve a mesh file (e.g. "teapot.obj") the same way."""
+    p = os.path.join(REPO_SCENES, "models", name)
+    if not os.path.exists(p):
+        raise FileNotFoundError(f"model '{name}' not found")
+    return p
