@@ -8,9 +8,10 @@ The pipeline (mesh_intersect_binned) moves rays to their triangles:
      enumerated wanted treelet; a segmented sort BINS lanes by that id;
      STREAM (csrc/stream.cu) tests the treelet's triangle rows and tightens
      the lane's bound;
-  3. a final cull finds the lanes that still have wants; the exact packet
-     walk (csrc/packet.cu, ops/bvh_packet.py) finishes them under the
-     tightened bound;
+  3. a final cull finds the lanes that still have wants; an exact walk
+     finishes them under the tightened bound: the packet walk
+     (csrc/packet.cu, ops/bvh_packet.py) by default, or the 8-wide walk
+     (csrc/wide.cu, ops/wide.py) with fallback_impl="wide";
   4. one last sort restores lane order.
 Passes are adaptive, as in the JAX package: 3 above PASSES_BIG_TRIS
 triangles, else 2; so is the pre-fallback compaction sort (FB_COMPACT). The
@@ -18,8 +19,8 @@ result is the true closest hit under t_bound, whatever the pass count.
 
 Only the default pipeline is ported: the expansion and slot pipelines,
 minority-want deferral, the chunk gate, the uv stream contract, the octcell
-candidate key, contiguous bins, the wide fallback and the diagnostic flags
-that give wrong results on purpose are not.
+candidate key, contiguous bins and the diagnostic flags that give wrong
+results on purpose are not.
 
 Each kernel wrapper (`cull`, `stream`) launches its CUDA kernel for CUDA
 tensors and runs the plain PyTorch version beside it for CPU tensors.
@@ -32,13 +33,16 @@ from ..scene.types import TREELET_NONE, TRIS_PER_ROW
 from ..utils.vec import Vec3
 from . import kernels
 from .bvh_packet import (closest_hit, finish_hits, mesh_intersect_packet,
-                         tri_table)
+                         root_candidates, slab, tri_table)
 
 FLT_MAX = 3.402823466e38
 NEG_MAX = -3.402823466e38
 POOL_ALIGN = 128 * 16      # pool padding: whole (16, 128) stream blocks
 PASSES_BIG_TRIS = 24000    # tri count above which passes = 3, FB_COMPACT on
 CULL_CHUNK = 1 << 22       # (lane, treelet) pairs per block of plain cull work
+FALLBACK_IMPL = "packet"   # the exact finish: "packet" (binary packet walk
+#                            per mesh) or "wide" (one 8-wide walk over all
+#                            meshes; needs the scene's wide tables)
 STREAM_CHUNK = 1 << 15     # lanes per block of plain stream work
 
 
@@ -61,16 +65,10 @@ def cull_plain(treelet_f, treelet_super, ox, oy, oz, dx, dy, dz,
     step = max(1, CULL_CHUNK // T)
     for c0 in range(0, ox.shape[0], step):
         sl = slice(c0, c0 + step)
-        o = [a[sl, None] for a in (ox, oy, oz)]
-        inv = [1.0 / a[sl, None] for a in (dx, dy, dz)]
-        tn = [(tab[None, :, c] - o[c]) * inv[c] for c in range(3)]
-        tf = [(tab[None, :, 3 + c] - o[c]) * inv[c] for c in range(3)]
-        t0 = torch.maximum(torch.maximum(torch.minimum(tn[0], tf[0]),
-                                         torch.minimum(tn[1], tf[1])),
-                           torch.minimum(tn[2], tf[2]))
-        t1 = torch.minimum(torch.minimum(torch.maximum(tn[0], tf[0]),
-                                         torch.maximum(tn[1], tf[1])),
-                           torch.maximum(tn[2], tf[2]))
+        t0, t1 = slab(tab[None, :, 0:3].unbind(-1),
+                      tab[None, :, 3:6].unbind(-1),
+                      [a[sl, None] for a in (ox, oy, oz)],
+                      [1.0 / a[sl, None] for a in (dx, dy, dz)])
         b, p_t0, p_id = bound[sl, None], pt0[sl, None], pid[sl, None]
         cand = ((live[sl, None] > 0) & (t0 <= t1) & (t1 > 0.0) & (t0 < b)
                 & ((t0 > p_t0) | ((t0 == p_t0) & (ids > p_id))))
@@ -162,9 +160,7 @@ def stream(treelet_i, tris_packed, max_rows: int,
         "stream", n, treelet_i32=treelet_i, tris_f32=tris_packed,
         ray_ox_f32=ox, ray_oy_f32=oy, ray_oz_f32=oz, ray_dx_f32=dx,
         ray_dy_f32=dy, ray_dz_f32=dz, ray_bound_f32=bound, ray_tid_i32=tid)
-    t = torch.empty(n, dtype=torch.float32, device=ox.device)
-    nx, ny, nz = (torch.empty_like(t) for _ in range(3))
-    mat = torch.empty(n, dtype=torch.int32, device=ox.device)
+    t, nx, ny, nz, mat = kernels.hit_outputs(n, ox.device)
     if n:
         p = kernels.ptr
         kernels.launch("stream", dev, p(treelet_i), treelet_i.numel() // 4,
@@ -193,12 +189,18 @@ def _seg_sort(key, *arrays):
 def mesh_intersect_binned(scene, mesh_roots, origin: Vec3, direction: Vec3,
                           active=None, t_bound=None,
                           passes: int | None = None,
-                          fb_compact: bool | None = None):
+                          fb_compact: bool | None = None,
+                          fallback_impl: str | None = None):
     """Binned-treelet mesh intersection over the whole ray pool, all meshes
     in one pass (binned.py:723). Returns (t [N], normal Vec3, mat [N]),
     t = -1 where nothing is closer than `t_bound`: the true closest hit.
     `passes` / `fb_compact` = None choose by triangle count, as the JAX
-    package does."""
+    package does; `fallback_impl` = None takes FALLBACK_IMPL."""
+    if fallback_impl is None:
+        fallback_impl = FALLBACK_IMPL
+    if fallback_impl not in ("packet", "wide"):
+        raise ValueError(f"fallback_impl {fallback_impl!r}: expected "
+                         "'packet' or 'wide'")
     n_tris = scene.tris_packed.shape[0] * TRIS_PER_ROW
     if passes is None:
         passes = 3 if n_tris > PASSES_BIG_TRIS else 2
@@ -217,18 +219,7 @@ def mesh_intersect_binned(scene, mesh_roots, origin: Vec3, direction: Vec3,
 
     # root candidacy (union over meshes): every treelet box lies inside its
     # mesh's root box, so a lane that misses all roots has no wants
-    cand = torch.zeros(n, dtype=torch.bool, device=dev)
-    inv_dir = 1.0 / direction
-    bvh = scene.bvh
-    for root in mesh_roots:
-        bmin = Vec3(bvh.min_x[root], bvh.min_y[root], bvh.min_z[root])
-        bmax = Vec3(bvh.max_x[root], bvh.max_y[root], bvh.max_z[root])
-        t_near = (bmin - origin) * inv_dir
-        t_far = (bmax - origin) * inv_dir
-        t0 = Vec3.minimum(t_near, t_far).max_component()
-        t1 = Vec3.maximum(t_near, t_far).min_component()
-        cand = cand | ((t0 <= t1) & (t1 > 0.0) & (t0 < tb))
-    act = act & cand
+    act = root_candidates(scene, mesh_roots, origin, direction, act, tb)
 
     ox, oy, oz = (prep(c, 0.0) for c in origin)
     dx, dy, dz = (prep(c, 1.0) for c in direction)
@@ -282,7 +273,8 @@ def mesh_intersect_binned(scene, mesh_roots, origin: Vec3, direction: Vec3,
             key, ox, oy, oz, dx, dy, dz, bound, lane, bt, bnx, bny, bnz, bmat)
         remaining = key == 0
     t, nrm, mat = _packet_fallback(scene, mesh_roots, Vec3(ox, oy, oz),
-                                   Vec3(dx, dy, dz), remaining, bound)
+                                   Vec3(dx, dy, dz), remaining, bound,
+                                   fallback_impl)
     hit = t > 0.0
     bt = torch.where(hit, t, bt)
     bnx = torch.where(hit, nrm.x, bnx)
@@ -295,9 +287,15 @@ def mesh_intersect_binned(scene, mesh_roots, origin: Vec3, direction: Vec3,
     return bt[:n], Vec3(bnx[:n], bny[:n], bnz[:n]), bmat[:n]
 
 
-def _packet_fallback(scene, mesh_roots, origin, direction, active, bound):
+def _packet_fallback(scene, mesh_roots, origin, direction, active, bound,
+                     fallback_impl: str = "packet"):
     """Exact finish for lanes with unenumerated wants, under the tightened
-    bound, one packet walk per mesh (binned.py:1158-1192)."""
+    bound (binned.py:1158-1192): one packet walk per mesh, or with
+    fallback_impl="wide" one 8-wide walk over every mesh."""
+    if fallback_impl == "wide":
+        from .wide import mesh_intersect_wide
+        return mesh_intersect_wide(scene, origin, direction, active=active,
+                                   t_bound=bound)
     n = origin.x.shape[0]
     dev = origin.x.device
     t_best = torch.full((n,), FLT_MAX, device=dev)

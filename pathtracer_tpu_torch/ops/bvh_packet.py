@@ -9,7 +9,13 @@ which no caller reads).
 
 `packet_walk` launches csrc/packet.cu for CUDA tensors and runs
 `packet_walk_plain`, the same per-ray stackless walk in plain PyTorch, for CPU
-tensors. The binned intersector (ops/binned.py) runs it as its exact fallback.
+tensors. The binned intersector (ops/binned.py) runs it as its exact fallback;
+`mesh_intersect_packet` is bvh_impl="pallas" and
+`mesh_intersect_packet_sorted` (bvh_pallas.py:330) is bvh_impl="sorted".
+
+`coherence_sorted` runs a walk over coherence-sorted chunks, for this
+module's and the 8-wide walk's (ops/wide.py) sorted wrappers; `slab` is the
+plain versions' box test.
 """
 from __future__ import annotations
 
@@ -21,11 +27,28 @@ from . import kernels
 
 FLT_MAX = 3.402823466e38
 LANE_CHUNK = 1 << 15   # lanes per block of [lanes, triangles] work
+SORT_CHUNK = 8192      # lanes per coherence-sort chunk (bvh_pallas.py:316)
 
 
 def tri_table(tris_packed: torch.Tensor) -> torch.Tensor:
     """[rows, 128] packed triangles -> [rows * 6, 20] records."""
     return tris_packed[:, :TRIS_PER_ROW * TRI_STRIDE].reshape(-1, TRI_STRIDE)
+
+
+def slab(lo, hi, o, inv):
+    """Entry and exit t (t0, t1) of boxes lo..hi (3 tensors each) for rays
+    o + t d with inv = 1/d, in the kernels' order (common.cuh slab); the
+    torch min/max propagate NaN, as jnp's do, so an empty slot's NaN box is
+    never entered. All arguments broadcast."""
+    tn = [(lo[c] - o[c]) * inv[c] for c in range(3)]
+    tf = [(hi[c] - o[c]) * inv[c] for c in range(3)]
+    t0 = torch.maximum(torch.maximum(torch.minimum(tn[0], tf[0]),
+                                     torch.minimum(tn[1], tf[1])),
+                       torch.minimum(tn[2], tf[2]))
+    t1 = torch.minimum(torch.minimum(torch.maximum(tn[0], tf[0]),
+                                     torch.maximum(tn[1], tf[1])),
+                       torch.maximum(tn[2], tf[2]))
+    return t0, t1
 
 
 def closest_hit(tri_tab, idx, mask, ox, oy, oz, dx, dy, dz, t_min):
@@ -79,10 +102,12 @@ def finish_hits(t_min, nx, ny, nz, mat, dx, dy, dz, bound):
 
 
 def packet_walk_plain(nodes_f, nodes_i, tris_packed, root: int,
-                      ox, oy, oz, dx, dy, dz, act, tb):
+                      ox, oy, oz, dx, dy, dz, act, tb, counts=None):
     """Plain PyTorch version of csrc/packet.cu: the per-ray stackless
     ENTER/ADVANCE walk over parent/sibling links (bvh_pallas.py:168-218),
-    vectorized over the lanes still walking."""
+    vectorized over the lanes still walking. `counts`, when given, is a
+    dict that gains the box tests ("box_tests") and triangle tests
+    ("tri_tests") the kernel does on these inputs."""
     nf = nodes_f.reshape(-1, 8)
     ni = nodes_i.reshape(-1, 4)
     n_nodes = nf.shape[0]
@@ -105,14 +130,9 @@ def packet_walk_plain(nodes_f, nodes_i, tris_packed, root: int,
         fv, iv = nf[nd], ni[nd]
         o = [a[lanes] for a in (ox, oy, oz)]
         inv = [a[lanes] for a in (ix, iy, iz)]
-        tn = [(fv[:, c] - o[c]) * inv[c] for c in range(3)]
-        tf = [(fv[:, 3 + c] - o[c]) * inv[c] for c in range(3)]
-        t0 = torch.maximum(torch.maximum(torch.minimum(tn[0], tf[0]),
-                                         torch.minimum(tn[1], tf[1])),
-                           torch.minimum(tn[2], tf[2]))
-        t1 = torch.minimum(torch.minimum(torch.maximum(tn[0], tf[0]),
-                                         torch.maximum(tn[1], tf[1])),
-                           torch.maximum(tn[2], tf[2]))
+        if counts is not None:
+            count(counts, "box_tests", enter[lanes].sum())
+        t0, t1 = slab(fv[:, 0:3].T, fv[:, 3:6].T, o, inv)
         want = (enter[lanes] & (t0 <= t1) & (t1 > 0.0)
                 & (t0 < t_min[lanes]))
         tri_first, tri_count = iv[:, 0], iv[:, 1]
@@ -120,6 +140,8 @@ def packet_walk_plain(nodes_f, nodes_i, tris_packed, root: int,
         leaf = want & is_leaf
         if bool(leaf.any()):
             sel = torch.nonzero(leaf).reshape(-1)
+            if counts is not None:
+                count(counts, "tri_tests", tri_count[sel].sum())
             k_max = int(tri_count[sel].max())
             ks = torch.arange(k_max, device=dev)
             for c0 in range(0, sel.numel(), LANE_CHUNK):
@@ -145,6 +167,11 @@ def packet_walk_plain(nodes_f, nodes_i, tris_packed, root: int,
     return finish_hits(t_min, nx, ny, nz, mat, dx, dy, dz, tb)
 
 
+def count(counts: dict, key: str, n) -> None:
+    """Add n (an int or a 0-d tensor) to counts[key]."""
+    counts[key] = counts.get(key, 0) + int(n)
+
+
 def packet_walk(nodes_f, nodes_i, tris_packed, root: int,
                 ox, oy, oz, dx, dy, dz, act, tb):
     """(t, nx, ny, nz, mat) per lane: csrc/packet.cu on CUDA tensors, the
@@ -158,9 +185,7 @@ def packet_walk(nodes_f, nodes_i, tris_packed, root: int,
         tris_f32=tris_packed, ray_ox_f32=ox, ray_oy_f32=oy, ray_oz_f32=oz,
         ray_dx_f32=dx, ray_dy_f32=dy, ray_dz_f32=dz, ray_act_i32=act,
         ray_tb_f32=tb)
-    t = torch.empty(n, dtype=torch.float32, device=ox.device)
-    nx, ny, nz = (torch.empty_like(t) for _ in range(3))
-    mat = torch.empty(n, dtype=torch.int32, device=ox.device)
+    t, nx, ny, nz, mat = kernels.hit_outputs(n, ox.device)
     if n:
         p = kernels.ptr
         kernels.launch("packet", dev, p(nodes_f), p(nodes_i),
@@ -188,3 +213,85 @@ def mesh_intersect_packet(scene, root_node: int, origin: Vec3,
                                      scene.tris_packed, root_node, *o, *d,
                                      act, tb)
     return t, Vec3(nx, ny, nz), mat
+
+
+def root_candidates(scene, roots, origin: Vec3, direction: Vec3, active,
+                    t_bound):
+    """Active lanes whose ray enters the box of any of the binary BVH roots
+    `roots` closer than t_bound: exactly the walks' root want-test (entry
+    t0, not aabb_intersect's inside-origin exit t), so no lane a walk would
+    enter is left out."""
+    cand = torch.zeros(origin.x.shape[0], dtype=torch.bool,
+                       device=origin.x.device)
+    inv_dir = 1.0 / direction
+    bvh = scene.bvh
+    for root in roots:
+        bmin = Vec3(bvh.min_x[root], bvh.min_y[root], bvh.min_z[root])
+        bmax = Vec3(bvh.max_x[root], bvh.max_y[root], bvh.max_z[root])
+        t_near = (bmin - origin) * inv_dir
+        t_far = (bmax - origin) * inv_dir
+        t0 = Vec3.minimum(t_near, t_far).max_component()
+        t1 = Vec3.maximum(t_near, t_far).min_component()
+        cand = cand | ((t0 <= t1) & (t1 > 0.0) & (t0 < t_bound))
+    return active & cand
+
+
+def coherence_sorted(walk, scene, roots, origin: Vec3, direction: Vec3,
+                     active=None, t_bound=None, sort_chunk: int = SORT_CHUNK):
+    """`walk` over coherence-sorted chunks, the scheme of the JAX package's
+    sorted wrappers (bvh_pallas.py:343-412, wide.py:539-603):
+      1. key each lane: candidates (active, and a mesh root box in `roots`
+         entered closer than the bound) get their direction octant, the
+         rest 8, so they trail;
+      2. stable sort of every `sort_chunk`-lane run by that key (the pool is
+         padded to whole runs, key 9);
+      3. walk(origin, direction, active, t_bound) on the sorted pool, with
+         the candidates as the active lanes;
+      4. back to lane order by the ride-along lane index.
+    On the TPU the sort gave each packet a coherent set of rays; here each
+    lane walks alone, so it changes which lanes share a warp, never a lane's
+    result."""
+    n = origin.x.shape[0]
+    dev = origin.x.device
+    act = (torch.ones(n, dtype=torch.bool, device=dev) if active is None
+           else active)
+    tb = (torch.full((n,), FLT_MAX, device=dev) if t_bound is None
+          else t_bound)
+    cand = root_candidates(scene, roots, origin, direction, act, tb)
+    chunk = min(sort_chunk, -(-n // 128) * 128)
+    n_pad = -(-n // chunk) * chunk
+
+    def prep(a, fill):
+        return torch.cat([a, a.new_full((n_pad - n,), fill)])
+
+    octant = ((direction.x < 0).to(torch.int32) * 4
+              + (direction.y < 0).to(torch.int32) * 2
+              + (direction.z < 0).to(torch.int32))
+    key = prep(torch.where(cand, octant, 8), 9).reshape(-1, chunk)
+    _, perm = torch.sort(key, dim=1, stable=True)
+
+    def take(a, fill):
+        return torch.gather(prep(a, fill).reshape(-1, chunk), 1,
+                            perm).reshape(-1)
+
+    def back(a):
+        a = a.reshape(perm.shape)
+        return torch.empty_like(a).scatter_(1, perm, a).reshape(-1)[:n]
+
+    t, nrm, mat = walk(Vec3(*(take(c, 0.0) for c in origin)),
+                       Vec3(*(take(c, 1.0) for c in direction)),
+                       take(cand, False), take(tb, 0.0))
+    return back(t), Vec3(*map(back, nrm)), back(mat)
+
+
+def mesh_intersect_packet_sorted(scene, root_node: int, origin: Vec3,
+                                 direction: Vec3, active=None, t_bound=None,
+                                 sort_chunk: int = SORT_CHUNK):
+    """The packet walk over coherence-sorted chunks (bvh_pallas.py:330,
+    bvh_impl="sorted"): the same (t, normal, mat) as
+    mesh_intersect_packet."""
+    def walk(o, d, act, tb):
+        return mesh_intersect_packet(scene, root_node, o, d, active=act,
+                                     t_bound=tb)
+    return coherence_sorted(walk, scene, (root_node,), origin, direction,
+                            active, t_bound, sort_chunk)

@@ -2,10 +2,13 @@
 
 The port of pathtracer_tpu/ops/intersect.py (reference src/intersections.cu):
 the analytic box and sphere tests, the slab test, and the scene-level closest
-hit `intersect_scene` with its two mesh intersectors, "binned"
-(ops/binned.py, the default for mesh scenes) and "pallas" (the packet walk
-alone, ops/bvh_packet.py; the name is the JAX package's). Every t is the
-world-ray parameter; t <= 0 encodes a miss.
+hit `intersect_scene` with its mesh intersectors, named as in the JAX
+package: "binned" (ops/binned.py, the default for mesh scenes), "pallas"
+(the packet walk alone, ops/bvh_packet.py), "sorted" (the packet walk over
+coherence-sorted chunks), "wide" / "wide_nosort" (the 8-wide walk,
+ops/wide.py, with or without that sort) and "brute" (every triangle,
+ops/brute.py). Every t is the world-ray parameter; t <= 0 encodes a miss.
+The reference-semantics walk "jnp" is not ported.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from ..scene.types import MESH, SPHERE, SceneArrays
 from ..utils.vec import Vec3, mat4_apply
 
 FLT_MAX = 3.402823466e38
+BVH_IMPLS = ("binned", "wide", "wide_nosort", "pallas", "sorted", "brute")
 
 
 def box_intersect(transform, inverse_transform, inv_transpose,
@@ -117,12 +121,16 @@ def intersect_scene(scene: SceneArrays, geom_types: Tuple[int, ...],
 
     Analytic geoms run first; their closest hit is the mesh intersector's
     pruning bound `t_bound`, exactly as in the JAX package. `bvh_impl` is
-    "binned" (one pass over all meshes) or "pallas" (one packet walk per
-    mesh). Returns (t [N] > 0 on hit else -1, normal Vec3, material_id [N]).
+    one of BVH_IMPLS (dispatch of intersect.py:394-457): "binned", "wide",
+    "wide_nosort" and "brute" make one pass over all meshes ("brute"
+    ignores `active` and the bound, which the merge then applies);
+    "pallas" and "sorted" walk each mesh root in turn. Returns (t [N] > 0
+    on hit else -1, normal Vec3, material_id [N]).
     """
-    if MESH in geom_types and bvh_impl not in ("binned", "pallas"):
+    if MESH in geom_types and bvh_impl not in BVH_IMPLS:
         raise ValueError(f"bvh_impl {bvh_impl!r} is not ported; "
-                         "use 'binned' or 'pallas'")
+                         f"use one of {BVH_IMPLS}")
+
     n = origin.x.shape[0]
     dev = origin.x.device
     t_best = torch.full((n,), FLT_MAX, device=dev)
@@ -153,10 +161,25 @@ def intersect_scene(scene: SceneArrays, geom_types: Tuple[int, ...],
             merge(*mesh_intersect_binned(scene, scene.mesh_roots, origin,
                                          direction, active=active,
                                          t_bound=t_best))
+        elif bvh_impl == "wide":
+            from .wide import mesh_intersect_wide_sorted
+            merge(*mesh_intersect_wide_sorted(scene, scene.mesh_roots,
+                                              origin, direction,
+                                              active=active, t_bound=t_best))
+        elif bvh_impl == "wide_nosort":
+            from .wide import mesh_intersect_wide
+            merge(*mesh_intersect_wide(scene, origin, direction,
+                                       active=active, t_bound=t_best))
+        elif bvh_impl == "brute":
+            from .brute import mesh_intersect_brute
+            merge(*mesh_intersect_brute(scene, origin, direction))
         else:
-            from .bvh_packet import mesh_intersect_packet
+            from .bvh_packet import (mesh_intersect_packet,
+                                     mesh_intersect_packet_sorted)
+            walk = (mesh_intersect_packet_sorted if bvh_impl == "sorted"
+                    else mesh_intersect_packet)
             for root in scene.mesh_roots:
-                merge(*mesh_intersect_packet(scene, root, origin, direction,
-                                             active=active, t_bound=t_best))
+                merge(*walk(scene, root, origin, direction, active=active,
+                            t_bound=t_best))
 
     return torch.where(any_hit, t_best, -1.0), n_best, m_best

@@ -1,8 +1,8 @@
 """Build, load and launch the hand-written CUDA kernels of csrc/.
 
-The three mesh-intersection kernels (csrc/cull.cu, stream.cu, packet.cu) are
-compiled by nvcc into one shared library with a plain C interface, loaded with
-ctypes. The library is built on first use, from the package's sources only,
+The mesh-intersection kernels (csrc/cull.cu, stream.cu, packet.cu, wide.cu,
+brute.cu) are compiled by nvcc into one shared library with a plain C
+interface, loaded with ctypes. The library is built on first use, from the package's sources only,
 into build/torch_kernels/ at the repo root; its file name carries a hash of
 the sources and flags, so a changed source is rebuilt and a stale library is
 never loaded.
@@ -26,7 +26,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 REPO_ROOT = os.path.dirname(os.path.dirname(CSRC))
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "torch_kernels")
-SOURCES = ("cull.cu", "stream.cu", "packet.cu")
+SOURCES = ("cull.cu", "stream.cu", "packet.cu", "wide.cu", "brute.cu")
 HEADERS = ("common.cuh",)
 # -fmad=false and no fast math: each kernel matches its plain PyTorch version
 # bit for bit (see csrc/common.cuh)
@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-LAUNCHES = {"cull": 0, "stream": 0, "packet": 0}
+LAUNCHES = {"cull": 0, "stream": 0, "packet": 0, "wide_push": 0,
+            "wide_mask": 0, "brute": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +48,15 @@ _ARGTYPES = {
     # device, nodes_f, nodes_i, n_nodes, tris, root, 8 ray planes,
     # 5 outputs, n, stream
     "pt_packet": [_I, _P, _P, _I, _P, _I] + [_P] * 8 + [_P] * 5 + [_I, _P],
+    # device, nodes8_f, nodes8_i, n_wide, tris8, n_groups, root, 8 ray
+    # planes, cull, 5 outputs, n, stream
+    "pt_wide_push": [_I, _P, _P, _I, _P, _I, _P] + [_P] * 8 + [_I]
+                    + [_P] * 5 + [_I, _P],
+    # the same without cull
+    "pt_wide_mask": [_I, _P, _P, _I, _P, _I, _P] + [_P] * 8 + [_P] * 5
+                    + [_I, _P],
+    # device, coeffs, attrs, n_tris, 6 ray planes, 5 outputs, n, stream
+    "pt_brute": [_I, _P, _P, _I] + [_P] * 6 + [_P] * 5 + [_I, _P],
 }
 
 _lib = None
@@ -106,10 +116,11 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def check(name: str, n: int, **tensors) -> torch.device:
+def check(name: str, n: int, cols: int = 128, **tensors) -> torch.device:
     """Raise unless every tensor is a contiguous tensor on one CUDA device,
     of the dtype its name ends in (_f32 / _i32), and of shape [n] for a ray
-    plane (name starting with ray_) or [rows, 128] for a table. Returns the
+    plane (name starting with ray_), [1] for a single value (name starting
+    with one_) or [rows, cols] with rows > 0 for a table. Returns the
     device."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
@@ -122,8 +133,12 @@ def check(name: str, n: int, **tensors) -> torch.device:
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} is not contiguous")
         shape = tuple(t.shape)
-        ok = (shape == (n,) if key.startswith("ray_")
-              else len(shape) == 2 and shape[1] == 128 and shape[0] > 0)
+        if key.startswith("ray_"):
+            ok = shape == (n,)
+        elif key.startswith("one_"):
+            ok = shape == (1,)
+        else:
+            ok = len(shape) == 2 and shape[1] == cols and shape[0] > 0
         if not ok:
             raise ValueError(f"{name}: {key} has shape {shape}")
     return devices.pop()
@@ -138,6 +153,14 @@ def launch(name: str, device: torch.device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
+
+
+def hit_outputs(n: int, device: torch.device):
+    """Empty (t, nx, ny, nz f32, mat i32) planes of n lanes, the outputs of
+    every closest-hit kernel."""
+    t = torch.empty(n, dtype=torch.float32, device=device)
+    return (t, *(torch.empty_like(t) for _ in range(3)),
+            torch.empty(n, dtype=torch.int32, device=device))
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

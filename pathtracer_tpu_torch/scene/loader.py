@@ -3,8 +3,9 @@
 The parsing, camera derivation and BVH / treelet construction are the JAX
 package's numpy host code, copied so that the port never imports JAX; only the
 last step differs: `make_scene_arrays` puts every table on the `device` the
-caller names. The 8-wide BVH tables (`wide_tables=True` in the JAX loader) and
-the brute-force tables are not part of this slice.
+caller names. The 8-wide BVH tables and the brute-force tables are built only
+when asked for (`wide_tables=True`, `brute_tables=True`), as in the JAX
+loader.
 
 `scene_from_jax_arrays` carries a scene the JAX package loaded across to the
 port: the tests use it so both packages intersect the very same tables.
@@ -22,6 +23,7 @@ import torch
 from ..utils.math import PI, build_transformation_matrix, inverse_transpose, normalize
 from . import obj as obj_loader
 from .bvh import align_leaves, build_bvh
+from .bvh8 import build_wide_bvh, concat_wide
 from .types import (CUBE, MESH, SPHERE, BVHArrays, CameraArrays, GeomArrays,
                     MaterialArrays, RenderSettings, SceneArrays,
                     make_scene_arrays)
@@ -123,14 +125,24 @@ def orbit_camera(cam: dict, zoom: float, theta: float, phi: float,
 
 
 def load_scene(path: str, device, orbit: bool = True,
-               overrides: Optional[dict] = None
+               overrides: Optional[dict] = None, brute_tables: bool = False,
+               wide_tables: bool = False, bvh_impl: Optional[str] = None
                ) -> Tuple[SceneArrays, RenderSettings]:
     """Load a scene JSON; returns (tensors on `device`, static settings).
 
     `orbit=True` applies the reference app's startup camera rebuild.
     `overrides` patches camera-block values (e.g. {"RES": [64, 64]}).
     The fat-leaf size of each mesh follows its triangle count: 288 above
-    BIG_MESH_TRIS, else 96, as in the JAX loader."""
+    BIG_MESH_TRIS, else 96, as in the JAX loader. `brute_tables=True` also
+    packs the brute-force intersector's tables (bvh_impl="brute");
+    `wide_tables=True` also builds the 8-wide BVH of every mesh
+    (bvh_impl="wide" / "wide_nosort", the binned wide fallback).
+    `bvh_impl`, when given, becomes the settings' mesh intersector and
+    loads the tables it needs (render.py's --bvh handling)."""
+    if bvh_impl == "brute":
+        brute_tables = True
+    if bvh_impl in ("wide", "wide_nosort"):
+        wide_tables = True
     device = torch.device(device)
     with open(path, "r") as f:
         data = json.load(f)
@@ -151,6 +163,7 @@ def load_scene(path: str, device, orbit: bool = True,
     node_count = 0
     tri_count = 0
     scene_tre_rows = 16   # rows-per-treelet bound over all meshes (min 16)
+    wide_meshes = []      # per-mesh (wide_nodes, tris8) for the 8-wide walk
 
     for p in data["Objects"]:
         t = p["TYPE"]
@@ -179,6 +192,9 @@ def load_scene(path: str, device, orbit: bool = True,
             scene_tre_rows = max(scene_tre_rows, -(-ml // 6))
             nodes, reordered = build_bvh(tris, max_leaf=ml)
             nodes, reordered = align_leaves(nodes, reordered)
+            if wide_tables:
+                # the 8-wide walk's own small-leaf tree and triangle order
+                wide_meshes.append(build_wide_bvh(tris))
             # global offset fix-up (scene.cpp:178-189)
             n_new = nodes["tri_first"].shape[0]
             is_leaf = nodes["tri_count"] > 0
@@ -241,7 +257,7 @@ def load_scene(path: str, device, orbit: bool = True,
         # tile-major lane order only pays for mesh traversal coherence
         tile=pick_tile(width, height) if node_count else None,
         # mesh scenes default to the binned-treelet intersector
-        bvh_impl="binned" if node_count else "pallas",
+        bvh_impl=bvh_impl or ("binned" if node_count else "pallas"),
         any_glossy=any(m["has_reflective"] != 0.0 and m["has_refractive"] == 0.0
                        for m in materials),
         any_refractive=any(m["has_refractive"] != 0.0 for m in materials),
@@ -259,8 +275,10 @@ def load_scene(path: str, device, orbit: bool = True,
     else:
         bvh_nodes, bvh_tris = None, None
 
+    wide_data = concat_wide(wide_meshes) if wide_meshes else None
     arrays = make_scene_arrays(geoms, materials, bvh_nodes, bvh_tris, cam,
-                               device, tre_rows=scene_tre_rows)
+                               device, brute_tables=brute_tables,
+                               wide_data=wide_data, tre_rows=scene_tre_rows)
     return arrays, settings
 
 
@@ -293,5 +311,10 @@ def scene_from_jax_arrays(arrays: dict, device) -> SceneArrays:
         tris_packed=t("tris_packed"),
         treelet_f=t("treelet_f"), treelet_i=t("treelet_i"),
         treelet_super=t("treelet_super"),
+        tris_mxu_c=t("tris_mxu_c"), tris_mxu_n=t("tris_mxu_n"),
+        nodes8_f=t("nodes8_f"), nodes8_i=t("nodes8_i"), tris8=t("tris8"),
+        wide_root=t("wide_root"),
         tre_rows=int(np.asarray(arrays["treelet_rows"]).shape[0]),
-        mesh_roots=tuple(int(r) for g, r in zip(gtype, roots) if g == MESH))
+        mesh_roots=tuple(int(r) for g, r in zip(gtype, roots) if g == MESH),
+        # the JAX placeholder forest is all zeros: no slot of any kind
+        wide_built=bool(np.asarray(arrays["nodes8_i"]).any()))

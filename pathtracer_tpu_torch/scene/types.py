@@ -7,9 +7,10 @@ package's. The packed `[rows, 128]` tables keep the JAX layouts byte for byte,
 so the CUDA kernels (ops/binned.py, ops/bvh_packet.py) read exactly the tables
 the Pallas kernels read, and the tests can hold one against the other.
 
-Left out of this slice: the brute-force MXU tables, the 8-wide BVH tables,
-the per-chunk gate table and the per-triangle attribute table, which only the
-intersectors and ablations not ported yet read.
+Left out: the per-chunk gate table and the per-triangle attribute table,
+which only ablations not ported yet read. The brute-force tables and the
+8-wide BVH tables are built on request (`brute_tables` / `wide_data`), as in
+the JAX package; otherwise they are placeholders.
 """
 from __future__ import annotations
 
@@ -31,6 +32,12 @@ TREELETS_PER_FROW = 16  # 16 treelets x 8 f32 fields (bounds) = 128 lanes
 TREELETS_PER_IROW = 32  # 32 treelets x 4 i32 fields (row range) = 128 lanes
 TREELET_NONE = 0x3FFFFFF  # "no treelet" id sentinel
 MAX_TRE_ROWS = 16         # default rows-per-treelet bound
+WIDE_NODES_PER_BLOCK = 16  # wide nodes per (8, 128) table block: node j's
+#                            field f at lane j*8+f, child c at row c
+WIDE_GROUPS_PER_BLOCK = 6  # 8-tri groups per (8, 128) tris8 block: group g
+#                            at lanes (g%6)*20..+19, triangle t at row t
+MXU_TRI_TILE = 512    # triangles per brute-force tile (table padding unit)
+MXU_NFEAT = 16        # per-ray feature vector [d, o, o x d, 1] padded 10->16
 
 
 @dataclasses.dataclass
@@ -104,10 +111,23 @@ class SceneArrays:
     treelet_f: torch.Tensor      # [ceil(T/16), 128] f32 bounds
     treelet_i: torch.Tensor      # [ceil(T/32), 128] i32 row ranges
     treelet_super: torch.Tensor  # [ceil(T/16), 128] f32 per-row union bounds
+    # brute-force tables (pack_tris_mxu); zero rows unless loaded with
+    # brute_tables=True
+    tris_mxu_c: torch.Tensor     # [Tt*4*512, 16] f32 linear-form coefficients
+    tris_mxu_n: torch.Tensor     # [Tt*512, 16] f32 (n0, n1, n2, mat)
+    # 8-wide BVH tables (pack_wide_tables): one forest covers every mesh,
+    # rooted at wide_root[0]; a one-node empty forest unless loaded with
+    # wide_tables=True
+    nodes8_f: torch.Tensor       # [Wb*8, 128] f32 child boxes
+    nodes8_i: torch.Tensor       # [Wb*8, 128] i32 child records
+    tris8: torch.Tensor          # [Gb*8, 128] f32 8-tri groups
+    wide_root: torch.Tensor      # [1] i32
     # host-side statics: the rows-per-treelet bound (the JAX package carries
-    # it as the shape of `treelet_rows`) and the BVH root of every mesh geom
+    # it as the shape of `treelet_rows`), the BVH root of every mesh geom,
+    # and whether nodes8_* / tris8 hold a built forest (not the placeholder)
     tre_rows: int
     mesh_roots: tuple
+    wide_built: bool
 
     @property
     def device(self) -> torch.device:
@@ -132,8 +152,12 @@ class RenderSettings:
     any_refractive: bool = True
     depth_quirk: bool = False    # reference termination quirk (ops/bsdf.py)
     rr_start: int = 0            # Russian roulette from this depth (0 = off)
-    # mesh intersector: "binned" (ops/binned.py) or "pallas", the packet walk
-    # alone (ops/bvh_packet.py); the names follow the JAX package
+    # mesh intersector, the names of the JAX package: "binned"
+    # (ops/binned.py), "pallas" (the packet walk alone, ops/bvh_packet.py),
+    # "sorted" (the packet walk over coherence-sorted chunks), "wide" /
+    # "wide_nosort" (the 8-wide walk, ops/wide.py, with or without that
+    # sort; needs wide tables) and "brute" (every triangle, ops/brute.py;
+    # needs brute tables)
     bvh_impl: str = "pallas"
     look_at: tuple = (0.0, 0.0, 0.0)
     fovy_deg: float = 45.0
@@ -326,6 +350,113 @@ def pack_bvh_tables(nodes: dict, tris: dict):
     return packed_f, packed_i, packed_t
 
 
+def pack_wide_tables(wide_nodes, tris8: dict):
+    """Tables of the 8-wide BVH walk (ops/wide.py), in the JAX layout
+    (pathtracer_tpu/scene/types.py:310):
+
+      nodes8_f [ceil(W/16)*8, 128] f32: wide node j of block g lives at
+          rows g*8..g*8+7 (row = child slot 0..7), lanes j*8+f with
+          f = (min_x, min_y, min_z, max_x, max_y, max_z, pad, pad).
+          Empty child slots hold NaN boxes (every slab comparison is then
+          False) and are also marked kind 0.
+      nodes8_i same geometry, i32, f = (kind, a, b, axis):
+          kind 0 empty / 1 internal (a = wide node idx) / 2 leaf
+          (a = first 8-tri group, b = group count); axis = the node's
+          child-sort axis, in every slot.
+      tris8 [ceil(G/6)*8, 128] f32: 8-triangle group g lives at rows
+          (g//6)*8.., row = triangle, lanes (g%6)*20 + f with the same 20
+          fields as pack_bvh_tables (v0, e1, e2, n0, n1, n2, mat, pad).
+          Table-tail padding triangles are all zero: determinant 0, never
+          valid.
+    Returns numpy arrays.
+    """
+    w = len(wide_nodes)
+    blocks = -(-w // WIDE_NODES_PER_BLOCK)
+    nf = np.full((blocks * 8, 128), np.nan, np.float32)
+    ni = np.zeros((blocks * 8, 128), np.int32)
+    for j, nd in enumerate(wide_nodes):
+        g, k = divmod(j, WIDE_NODES_PER_BLOCK)
+        base = k * 8
+        for c, ((kind, a, b), (mn, mx)) in enumerate(
+                zip(nd["children"], nd["boxes"])):
+            nf[g * 8 + c, base:base + 3] = mn
+            nf[g * 8 + c, base + 3:base + 6] = mx
+            ni[g * 8 + c, base:base + 4] = (kind, a, b, nd["axis"])
+        for c in range(len(nd["children"]), 8):
+            ni[g * 8 + c, base + 3] = nd["axis"]
+
+    nt = tris8["v0"].shape[0]
+    assert nt % 8 == 0, "tris8 must be 8-aligned (scene/bvh8.py)"
+    ngroups = nt // 8
+    tblocks = -(-ngroups // WIDE_GROUPS_PER_BLOCK)
+    t = np.zeros((nt, TRI_STRIDE), np.float32)
+    t[:, 0:3] = tris8["v0"]
+    t[:, 3:6] = tris8["v1"] - tris8["v0"]
+    t[:, 6:9] = tris8["v2"] - tris8["v0"]
+    t[:, 9:12] = tris8["n0"]
+    t[:, 12:15] = tris8["n1"]
+    t[:, 15:18] = tris8["n2"]
+    t[:, 18] = tris8["material_id"].astype(np.float32)
+    packed = np.zeros((tblocks * 8, 128), np.float32)
+    g4 = np.zeros((tblocks * WIDE_GROUPS_PER_BLOCK, 8, TRI_STRIDE),
+                  np.float32)
+    g4[:ngroups] = t.reshape(ngroups, 8, TRI_STRIDE)
+    g4 = g4.reshape(tblocks, WIDE_GROUPS_PER_BLOCK, 8, TRI_STRIDE)
+    for gg in range(WIDE_GROUPS_PER_BLOCK):
+        packed[:, gg * TRI_STRIDE:(gg + 1) * TRI_STRIDE] = (
+            g4[:, gg].reshape(tblocks * 8, TRI_STRIDE))
+    return nf, ni, packed
+
+
+def pack_tris_mxu(tris: dict):
+    """Coefficient tables of the brute-force intersector (ops/brute.py), in
+    the JAX layout (pathtracer_tpu/scene/types.py:374).
+
+    Moller-Trumbore per (ray, tri) reduces to FOUR quantities that are
+    LINEAR in the 10-dim per-ray feature vector F = [d, o, o x d, 1]:
+      a  = d . (e2 x e1)                       (the MT determinant)
+      un = (s x d) . e2 = (o x d) . e2 - d . (e2 x v0)      (= u * a)
+      vn = d . (s x e1) = -(o x d) . e1 - d . (v0 x e1)     (= v * a)
+      tn = s . (e1 x e2) = o . (e1 x e2) - v0 . (e1 x e2)   (= t * a)
+
+    Returns numpy (coeffs [Tt*4*TILE, 16] f32, attrs [Tt*TILE, 16] f32):
+    per tile of TILE triangles, the a, un, vn and tn rows one block after
+    another; attrs rows are (n0, n1, n2, material_id, pad). Triangles are
+    padded to a TILE multiple with degenerate (a == 0) entries.
+    """
+    v0 = np.asarray(tris["v0"], np.float64)
+    v1 = np.asarray(tris["v1"], np.float64)
+    v2 = np.asarray(tris["v2"], np.float64)
+    e1 = v1 - v0
+    e2 = v2 - v0
+    t = v0.shape[0]
+    tpad = -(-t // MXU_TRI_TILE) * MXU_TRI_TILE
+    n_tiles = tpad // MXU_TRI_TILE
+
+    ca = np.zeros((tpad, MXU_NFEAT), np.float64)
+    cu = np.zeros((tpad, MXU_NFEAT), np.float64)
+    cv = np.zeros((tpad, MXU_NFEAT), np.float64)
+    ct = np.zeros((tpad, MXU_NFEAT), np.float64)
+    ca[:t, 0:3] = np.cross(e2, e1)                 # a: d coefs
+    cu[:t, 0:3] = -np.cross(e2, v0)                # un: d coefs
+    cu[:t, 6:9] = e2                               # un: (o x d) coefs
+    cv[:t, 0:3] = -np.cross(v0, e1)                # vn: d coefs
+    cv[:t, 6:9] = -e1                              # vn: (o x d) coefs
+    n_geo = np.cross(e1, e2)
+    ct[:t, 3:6] = n_geo                            # tn: o coefs
+    ct[:t, 9] = -(v0 * n_geo).sum(axis=1)          # tn: const
+    coeffs = np.stack([c.reshape(n_tiles, MXU_TRI_TILE, MXU_NFEAT)
+                       for c in (ca, cu, cv, ct)], axis=1)
+    coeffs = coeffs.reshape(n_tiles * 4 * MXU_TRI_TILE, MXU_NFEAT)
+
+    attrs = np.zeros((tpad, MXU_NFEAT), np.float64)
+    attrs[:t, 0:3] = np.asarray(tris["n0"], np.float64)
+    attrs[:t, 3:6] = np.asarray(tris["n1"], np.float64)
+    attrs[:t, 6:9] = np.asarray(tris["n2"], np.float64)
+    attrs[:t, 9] = np.asarray(tris["material_id"], np.float64)
+    return coeffs.astype(np.float32), attrs.astype(np.float32)
+
+
 def _inverted_boxes(shape) -> np.ndarray:
     """Zero table with 8-field records whose boxes are inverted (min=+inf,
     max=-inf): a slab test against them never enters."""
@@ -336,10 +467,18 @@ def _inverted_boxes(shape) -> np.ndarray:
 
 
 def make_scene_arrays(geom_list, material_list, bvh_nodes, bvh_tris, camera,
-                      device, tre_rows: int = None) -> SceneArrays:
+                      device, brute_tables: bool = False, wide_data=None,
+                      tre_rows: int = None) -> SceneArrays:
     """Build SceneArrays on `device` from the loader's host lists/dicts
-    (pathtracer_tpu/scene/types.py:698, minus the tables this slice does not
-    read)."""
+    (pathtracer_tpu/scene/types.py:698, minus the chunk-gate and tri-attr
+    tables).
+
+    brute_tables: also pack the brute-force intersector's tables; without
+    them they have zero rows, so the brute intersector can reject the scene.
+    wide_data: optional (wide_nodes, tris8_dict, root) from scene/bvh8.py
+    concat_wide; without it a one-node forest whose slots are all empty is
+    packed, and `wide_built` is False so the 8-wide walk can reject the
+    scene."""
     assert len(geom_list) > 0, "scene must have at least one geom"
     assert len(material_list) > 0, "scene must have at least one material"
 
@@ -392,6 +531,7 @@ def make_scene_arrays(geom_list, material_list, bvh_nodes, bvh_tris, camera,
         treelet_super = np.zeros((1, 128), np.float32)
         treelet_super[:, 0:3] = np.inf
         treelet_super[:, 3:6] = -np.inf
+        mxu_c = mxu_n = np.zeros((0, MXU_NFEAT), np.float32)
     else:
         bmin = np.asarray(bvh_nodes["bounds_min"], dtype=np.float32)
         bmax = np.asarray(bvh_nodes["bounds_max"], dtype=np.float32)
@@ -403,6 +543,19 @@ def make_scene_arrays(geom_list, material_list, bvh_nodes, bvh_tris, camera,
         packed_f, packed_i, packed_t = pack_bvh_tables(bvh_nodes, tri_dict)
         treelet_f, treelet_i, treelet_super = pack_treelet_tables(
             bvh_nodes, tri_dict, max_rows=tre_rows)
+        if brute_tables:
+            mxu_c, mxu_n = pack_tris_mxu(tri_dict)
+        else:
+            mxu_c = mxu_n = np.zeros((0, MXU_NFEAT), np.float32)
+    if wide_data is not None:
+        wide_nodes, tris8_dict, wide_root_idx = wide_data
+        nodes8_f, nodes8_i, tris8 = pack_wide_tables(wide_nodes, tris8_dict)
+    else:
+        # one node, every slot kind 0 (zeros, as the JAX package packs it)
+        nodes8_f = np.zeros((8, 128), np.float32)
+        nodes8_i = np.zeros((8, 128), np.int32)
+        tris8 = np.zeros((8, 128), np.float32)
+        wide_root_idx = 0
     bvh = BVHArrays(
         min_x=f32(bmin[:, 0]), min_y=f32(bmin[:, 1]), min_z=f32(bmin[:, 2]),
         max_x=f32(bmax[:, 0]), max_y=f32(bmax[:, 1]), max_z=f32(bmax[:, 2]),
@@ -428,6 +581,10 @@ def make_scene_arrays(geom_list, material_list, bvh_nodes, bvh_tris, camera,
         tris_packed=f32(packed_t),
         treelet_f=f32(treelet_f), treelet_i=i32(treelet_i),
         treelet_super=f32(treelet_super),
+        tris_mxu_c=f32(mxu_c), tris_mxu_n=f32(mxu_n),
+        nodes8_f=f32(nodes8_f), nodes8_i=i32(nodes8_i), tris8=f32(tris8),
+        wide_root=i32([wide_root_idx]),
         tre_rows=int(tre_rows or MAX_TRE_ROWS),
         mesh_roots=tuple(int(x.get("root_node", -1)) for x in geom_list
-                         if x["type"] == MESH))
+                         if x["type"] == MESH),
+        wide_built=wide_data is not None)

@@ -2,7 +2,8 @@
 pathtracer_tpu/utils/profiling.py):
 
     python -m pathtracer_tpu_torch.utils.profiling scenes/teapot.json \
-        [--iters 3] [--res R] [--depth D] [--json out.json]
+        [--iters 3] [--res R] [--depth D] [--json out.json] [--device cuda] \
+        [--bvh wide]
 
 Three measurements of whole iterations (`render_iteration` with early exit,
 as `render` runs it), each after one warm-up iteration:
@@ -18,7 +19,8 @@ as `render` runs it), each after one warm-up iteration:
     time of issuing its ops. Stages nest (a sort inside the mesh pipeline
     inside intersect), so their times are inclusive and do not add up.
 
-On the CPU there is no device to trace: the device fields are None.
+It runs on the CUDA device unless `--device cpu` asks for the CPU, where
+there is no device to trace: the device fields are then None.
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ from unittest import mock
 import torch
 
 from ..engine import wavefront
-from ..ops import binned, bvh_packet, intersect
+from ..ops import binned, brute, bvh_packet, intersect, wide
+from .device import resolve_device
 
 # (module, function, stage name), outermost first
 STAGES = (
@@ -44,6 +47,8 @@ STAGES = (
     (binned, "cull", "mesh_binned.cull"),
     (binned, "stream", "mesh_binned.stream"),
     (bvh_packet, "packet_walk", "mesh.packet"),
+    (wide, "wide_walk", "mesh.wide"),
+    (brute, "brute", "mesh.brute"),
     (wavefront, "shade", "shade"),
 )
 
@@ -52,6 +57,9 @@ KINDS = (
     ("cull_kernel", "cull kernel"),
     ("stream_kernel", "stream kernel"),
     ("packet_kernel", "packet kernel"),
+    ("wide_push_kernel", "wide push kernel"),
+    ("wide_mask_kernel", "wide mask kernel"),
+    ("brute_kernel", "brute kernel"),
     ("memcpy", "memcpy/memset"),
     ("memset", "memcpy/memset"),
     ("sort", "sorts"),
@@ -159,13 +167,16 @@ def stage_times(scene, settings, iters: int = 3, seed: int = 0) -> dict:
 
 
 def report(scene_file: str, device, iters: int = 3, seed: int = 0,
-           overrides: dict | None = None) -> dict:
-    """All three measurements of one scene on `device`."""
+           overrides: dict | None = None, bvh: str | None = None) -> dict:
+    """All three measurements of one scene on `device`, through the mesh
+    intersector `bvh` (None: the loader's pick)."""
     from ..scene.loader import load_scene
-    scene, settings = load_scene(scene_file, device, overrides=overrides)
+    scene, settings = load_scene(scene_file, device, overrides=overrides,
+                                 bvh_impl=bvh)
     with torch.inference_mode():
         return {
             "scene": scene_file, "device": str(scene.device),
+            "bvh": settings.bvh_impl,
             "res": [settings.width, settings.height],
             "depth": settings.trace_depth, "iters": iters,
             "frame_ms": frame_ms(scene, settings, iters, seed),
@@ -176,7 +187,8 @@ def report(scene_file: str, device, iters: int = 3, seed: int = 0,
 
 def format_report(rep: dict) -> str:
     lines = [f"{rep['scene']} {rep['res'][0]}x{rep['res'][1]} "
-             f"d{rep['depth']} on {rep['device']}, {rep['iters']} iterations:"
+             f"d{rep['depth']} bvh {rep['bvh']} on {rep['device']}, "
+             f"{rep['iters']} iterations:"
              f" untraced {rep['frame_ms']:.2f} ms/frame"]
     prof = rep["device_profile"]
     lines.append(f"  traced wall {prof['wall_ms']:.2f} ms/frame")
@@ -206,16 +218,21 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--json", type=str, default=None,
                     help="also write the reports to this file")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to profile on (default cuda)")
+    ap.add_argument("--bvh", choices=intersect.BVH_IMPLS, default=None,
+                    help="mesh intersector (default: the loader's pick)")
     args = ap.parse_args(argv)
+    device = resolve_device(args.device)
     overrides = {}
     if args.res is not None:
         overrides["RES"] = [args.res, args.res]
     if args.depth is not None:
         overrides["DEPTH"] = args.depth
-    device = "cuda" if torch.cuda.is_available() else "cpu"
     reps = []
     for s in args.scenes:
-        rep = report(s, device, args.iters, args.seed, overrides or None)
+        rep = report(s, device, args.iters, args.seed, overrides or None,
+                     args.bvh)
         print(format_report(rep), flush=True)
         reps.append(rep)
     if args.json:

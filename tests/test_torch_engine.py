@@ -84,9 +84,34 @@ def test_command_line_render_writes_png(tmp_path, capsys):
 
     out = tmp_path / "teapot.png"
     main([scene_path("teapot"), "--res", "16", "--spp", "1", "--depth", "2",
-          "--out", str(out), "--seed", "3"])
+          "--out", str(out), "--seed", "3", "--device", "cpu"])
     assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
     assert "16x16 d2 1 iterations on cpu" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("bvh", ["wide", "brute"])
+def test_command_line_bvh_loads_its_tables(tmp_path, capsys, bvh):
+    """--bvh picks the intersector and loads the tables it needs."""
+    from pathtracer_tpu_torch.__main__ import main
+
+    out = tmp_path / "teapot.png"
+    main([scene_path("teapot"), "--res", "16", "--spp", "1", "--depth", "2",
+          "--out", str(out), "--bvh", bvh, "--device", "cpu"])
+    assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    assert f"on cpu, bvh {bvh}:" in capsys.readouterr().out
+
+
+def test_command_line_needs_a_card_unless_asked_for_the_cpu(monkeypatch,
+                                                            tmp_path):
+    """Without a CUDA device and without --device, the entry point fails
+    instead of rendering on the CPU."""
+    from pathtracer_tpu_torch.__main__ import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "x.png"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([scene_path("teapot"), "--res", "16", "--out", str(out)])
+    assert not out.exists()
 
 
 def test_save_png_round_trip(tmp_path):

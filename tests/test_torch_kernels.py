@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from pathtracer_tpu_torch import load_scene
-from pathtracer_tpu_torch.ops import binned, bvh_packet, kernels
+from pathtracer_tpu_torch.ops import binned, brute, bvh_packet, kernels, wide
 from pathtracer_tpu_torch.scene.fixtures import scene_path
 from pathtracer_tpu_torch.utils.vec import Vec3
 
@@ -59,6 +59,27 @@ def test_cpu_tensors_take_the_plain_versions():
     assert kernels.LAUNCHES == before
 
 
+def test_cpu_tensors_take_the_plain_versions_of_wide_and_brute():
+    scene, _ = load_scene(scene_path("teapot"), "cpu", brute_tables=True,
+                          wide_tables=True)
+    before = dict(kernels.LAUNCHES)
+    o, d, bound, act = _planes(256, 0, "cpu")
+    w_args = (scene.nodes8_f, scene.nodes8_i, scene.tris8, scene.wide_root,
+              *o, *d, act, bound)
+    for variant in wide.VARIANTS:
+        for a, b in zip(wide.wide_walk(*w_args, variant=variant),
+                        wide.wide_walk_plain(*w_args, variant=variant)):
+            assert torch.equal(a, b)
+    b_args = (scene.tris_mxu_c, scene.tris_mxu_n, *o, *d)
+    for a, b in zip(brute.brute(*b_args), brute.brute_plain(*b_args)):
+        assert torch.equal(a, b)
+    assert kernels.LAUNCHES == before
+    with pytest.raises(ValueError):
+        wide.wide_walk(*w_args, variant="mask", cull=True)
+    with pytest.raises(ValueError):
+        wide.wide_walk(*w_args, variant="stack")
+
+
 def test_binned_big_mesh_equals_packet_walk():
     """animal.json is the big-mesh case: 48-row treelets, 3 passes and the
     pre-fallback compaction sort by default. The pipeline must give the
@@ -93,7 +114,8 @@ def test_library_path_tracks_the_sources():
 @pytest.mark.cuda
 def test_wrappers_reject_bad_inputs():
     _need_cuda()
-    scene, _ = load_scene(scene_path("teapot"), "cuda")
+    scene, _ = load_scene(scene_path("teapot"), "cuda", brute_tables=True,
+                          wide_tables=True)
     o, d, bound, act = _planes(256, 0, "cuda")
     with pytest.raises(TypeError):
         bvh_packet.packet_walk(scene.bvh_packed_f, scene.bvh_packed_i,
@@ -103,6 +125,28 @@ def test_wrappers_reject_bad_inputs():
         bvh_packet.packet_walk(scene.bvh_packed_f, scene.bvh_packed_i,
                                scene.tris_packed, 0, *o, *d, act,
                                bound[:100])
+    tabs = (scene.nodes8_f, scene.nodes8_i, scene.tris8)
+    for variant in wide.VARIANTS:
+        with pytest.raises(TypeError):     # an f32 root
+            wide.wide_walk(*tabs, scene.wide_root.float(), *o, *d, act,
+                           bound, variant=variant)
+        with pytest.raises(ValueError):    # a root of two values
+            wide.wide_walk(*tabs, scene.wide_root.repeat(2), *o, *d, act,
+                           bound, variant=variant)
+        with pytest.raises(ValueError):    # a CPU plane beside CUDA rays
+            wide.wide_walk(*tabs, scene.wide_root, *o, *d, act.cpu(),
+                           bound, variant=variant)
+    with pytest.raises(ValueError):        # tables cut mid-block
+        wide.wide_walk(scene.nodes8_f[:4], scene.nodes8_i[:4], scene.tris8,
+                       scene.wide_root, *o, *d, act, bound)
+    with pytest.raises(ValueError):        # a 128-wide coefficient table
+        brute.brute(scene.nodes8_f, scene.tris_mxu_n, *o, *d)
+    with pytest.raises(ValueError):        # part of a tile
+        brute.brute(scene.tris_mxu_c[:1024], scene.tris_mxu_n[:256], *o,
+                    *d)
+    with pytest.raises(ValueError):        # not 16-byte aligned
+        brute.brute(scene.tris_mxu_c.reshape(-1)[1:1 + 2048 * 16].reshape(
+            2048, 16), scene.tris_mxu_n[:512], *o, *d)
 
 
 @pytest.mark.cuda
@@ -127,6 +171,41 @@ def test_kernels_match_plain_versions_on_the_card(name):
               scene.mesh_roots[0], *o, *d, act, bound)
     for a, b in zip(bvh_packet.packet_walk(*w_args),
                     bvh_packet.packet_walk_plain(*w_args)):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["teapot", "animal"])
+def test_wide_kernels_match_plain_versions_on_the_card(name):
+    """Both stack disciplines (and the push cull) against the plain walk:
+    t and integers bit for bit, normals too (-fmad=false); push and mask
+    equal."""
+    _need_cuda()
+    scene, _ = load_scene(scene_path(name), "cuda", wide_tables=True)
+    o, d, bound, act = _planes(65536, 1, "cuda")
+    args = (scene.nodes8_f, scene.nodes8_i, scene.tris8, scene.wide_root,
+            *o, *d, act, bound)
+    push = wide.wide_walk(*args)
+    assert int((push[0] > 0).sum()) > 100
+    for kw in ({"variant": "push"}, {"variant": "push", "cull": True},
+               {"variant": "mask"}):
+        got = wide.wide_walk(*args, **kw)
+        for a, b, c in zip(got, wide.wide_walk_plain(*args, **kw), push):
+            assert torch.equal(a, b), kw
+            assert torch.equal(a, c), kw
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_brute_kernel_matches_plain_version_on_the_card():
+    _need_cuda()
+    scene, _ = load_scene(scene_path("teapot"), "cuda", brute_tables=True)
+    o, d, _, _ = _planes(16384, 2, "cuda")
+    args = (scene.tris_mxu_c, scene.tris_mxu_n, *o, *d)
+    got = brute.brute(*args)
+    assert int((got[0] > 0).sum()) > 100
+    for a, b in zip(got, brute.brute_plain(*args)):
         assert torch.equal(a, b)
     torch.cuda.synchronize()
 

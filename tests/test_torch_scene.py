@@ -23,7 +23,8 @@ torch.set_num_threads(2)
 SCENES = ["cornell", "sphere", "glass_slab", "open_test_scene", "test_scene",
           "teapot", "cow", "animal"]   # every scene in scenes/
 TABLES = ["bvh_packed_f", "bvh_packed_i", "tris_packed", "treelet_f",
-          "treelet_i", "treelet_super"]
+          "treelet_i", "treelet_super", "tris_mxu_c", "tris_mxu_n",
+          "nodes8_f", "nodes8_i", "tris8", "wide_root"]
 GROUPS = ["geoms", "materials", "bvh", "camera"]
 
 
@@ -74,6 +75,23 @@ def test_load_scene_matches_jax_exactly(name):
                                   np.asarray(j_settings.pixel_map()(lanes)))
 
 
+@pytest.mark.parametrize("name", ["teapot", "cow"])
+def test_wide_and_brute_tables_match_jax_exactly(name):
+    """The 8-wide BVH tables and the brute-force tables, built on request,
+    equal the JAX loader's bit for bit (without the request both packages
+    pack the same placeholders, test_load_scene_matches_jax_exactly)."""
+    j_scene, _ = jax_load_scene(scene_path(name), brute_tables=True,
+                                wide_tables=True)
+    p_scene, _ = load_scene(scene_path(name), "cpu", brute_tables=True,
+                            wide_tables=True)
+    assert_scene_equal(p_scene, jax_leaves(j_scene))
+    assert p_scene.tris_mxu_n.shape[0] > 0 and p_scene.tris8.shape[0] > 8
+    # and they survive the carry across from the JAX package
+    carried = scene_from_jax_arrays(jax_leaves(j_scene), "cpu")
+    assert_scene_equal(carried, jax_leaves(j_scene))
+    assert p_scene.wide_built and carried.wide_built
+
+
 def test_scene_from_jax_arrays_round_trip():
     """JAX leaves carried across give the port's own scene, bit for bit."""
     j_scene, _ = jax_load_scene(scene_path("teapot"))
@@ -81,6 +99,27 @@ def test_scene_from_jax_arrays_round_trip():
     carried = scene_from_jax_arrays(leaves, "cpu")
     assert carried.device.type == "cpu"
     assert_scene_equal(carried, leaves)
+    # the placeholder forest is known for one on both sides
+    assert not carried.wide_built
+    assert not load_scene(scene_path("teapot"), "cpu")[0].wide_built
+
+
+@pytest.mark.parametrize("impl", ["binned", "wide", "wide_nosort", "pallas",
+                                  "sorted", "brute"])
+def test_load_scene_bvh_impl_loads_its_tables(impl):
+    """load_scene(bvh_impl=...) picks the intersector and builds the tables
+    it needs, as render.py's --bvh does: brute tables for "brute", the wide
+    forest for "wide" / "wide_nosort", neither for the others."""
+    scene, settings = load_scene(scene_path("teapot"), "cpu", bvh_impl=impl)
+    assert settings.bvh_impl == impl
+    assert (scene.tris_mxu_n.shape[0] > 0) == (impl == "brute")
+    assert scene.wide_built == (impl in ("wide", "wide_nosort"))
+    ref, _ = load_scene(scene_path("teapot"), "cpu",
+                        brute_tables=impl == "brute",
+                        wide_tables=impl in ("wide", "wide_nosort"))
+    ref_leaves = port_leaves(ref)
+    for key, arr in port_leaves(scene).items():
+        np.testing.assert_array_equal(arr, ref_leaves[key], err_msg=key)
 
 
 def test_port_never_imports_jax():
