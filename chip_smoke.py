@@ -27,7 +27,23 @@ Phases, each fatal on failure:
      read just after: each must launch its kernels, and its image must be
      finite and not all zero;
   8. teapot 64x64 d4, 2 iterations, through "wide" and "brute": each image
-     must agree with the "binned" one.
+     must agree with the "binned" one;
+  9. the scan kernel (csrc/scan.cu) against its plain version: the bounce-1
+     liveness mask as int32 (640,000 lanes) and ragged sizes bit for bit, a
+     float32 plane of that pool within SCAN_F32_RTOL and the same in two
+     runs; median times beside the bound (8 bytes an element) and
+     torch.cumsum's;
+ 10. the scan's API on the bounce-1 state, counters reset just before and
+     read just after: compact by liveness (one scan launch) must equal its
+     plain version, and the radix sort_by_key of the material keys (one
+     launch a bit) must equal torch.sort(stable=True);
+ 11. Cornell's ray_survival; then teapot 800x800 d4 and Cornell 800x800 d8
+     in the sorted, tiled (compact_tile 16000) and persistent modes, each
+     with the counters reset just before: ms/frame (persistent: steps a
+     frame), teapot must launch its mesh kernels, every image finite and
+     not all zero;
+ 12. teapot and Cornell 64x64 d4: the sorted, tiled and persistent images
+     must each agree with the masked one.
 The second-to-last lines are one JSON object with every kernel's numbers and
 the card's name and power limit; the last line is the result object.
 Exits non-zero, printing no result, where torch sees no CUDA device.
@@ -62,6 +78,21 @@ OPS_TRI = 55
 # the brute function's validity test of one (ray, triangle) pair after its
 # four linear forms: a*a, u*a, v*a, u*a + v*a, t*a, eps*a^2 and 5 compares
 OPS_BRUTE_TEST = 11
+# the scan at ragged sizes (int32, bit for bit) beside the 640,000-lane mask
+RAGGED = (1, 31, 4095, 4097, 2 ** 24 + 3)
+# the scan's float32 tolerance: two orders of summing n float32 values differ
+# by at most about (the longer chain of dependent adds) * 2**-24 * sum |x|;
+# 1e-5 * sum |x| allows chains of some 170 adds (the kernel's is under 50)
+SCAN_F32_RTOL = 1e-5
+MODE_ITERS = 2       # timed iterations of each engine mode at 800x800
+
+
+def leaves(tree) -> list:
+    """The tensors of a tree of tuples, in order."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [leaf for sub in tree for leaf in leaves(sub)]
 
 
 def log(msg: str) -> None:
@@ -206,10 +237,11 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} "
         f"device {torch.cuda.get_device_name(0)}")
-    from pathtracer_tpu_torch import load_scene, render
-    from pathtracer_tpu_torch.engine import wavefront
+    from pathtracer_tpu_torch import load_scene, render, render_persistent
+    from pathtracer_tpu_torch.engine import persistent, wavefront
+    from pathtracer_tpu_torch.engine.wavefront import ray_survival
     from pathtracer_tpu_torch.ops import (binned, brute, bvh_packet, kernels,
-                                          rng, wide)
+                                          rng, scan, wide)
     from pathtracer_tpu_torch.ops.intersect import intersect_scene
     nvcc = subprocess.run([kernels._nvcc(), "--version"], capture_output=True,
                           text=True, check=True, timeout=60)
@@ -476,7 +508,149 @@ def main() -> int:
                        iterations=2, seed=0)
         image_agreement(f"teapot 64x64 d4 {impl} vs binned", img_i, img_k)
 
-    # -- 9. results ------------------------------------------------------------
+    # -- 9. the scan kernel vs its plain version -------------------------------
+    with torch.inference_mode():
+        mask = live.to(torch.int32)          # teapot bounce-1 liveness
+        plane = state.color.x.contiguous()   # a float32 plane of that pool
+        counts = {}
+        got = scan.exclusive_scan(mask)
+        ref = scan.exclusive_scan_plain(mask)
+        if not torch.equal(got, ref):
+            raise AssertionError("scan: the liveness mask's scan differs on "
+                                 f"{int((got != ref).sum())} lanes")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for n in RAGGED:
+            x = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), device=dev,
+                              dtype=torch.int32, generator=gen)
+            for xi in (x, x & 1):              # sums that wrap, and a mask
+                if not torch.equal(scan.exclusive_scan(xi),
+                                   scan.exclusive_scan_plain(xi)):
+                    raise AssertionError(f"scan: int32 n={n} differs")
+        f_got = scan.exclusive_scan(plane)
+        f_err = float((f_got - scan.exclusive_scan_plain(plane)).abs().max())
+        f_tol = SCAN_F32_RTOL * float(plane.abs().sum())
+        if f_err > f_tol or not torch.equal(f_got,
+                                            scan.exclusive_scan(plane)):
+            raise AssertionError(f"scan: float32 error {f_err} over {f_tol},"
+                                 " or two runs differ")
+        n = mask.shape[0]
+        ms = cuda_ms(lambda: scan.exclusive_scan(mask), reps=20)
+        plain_ms = cuda_ms(lambda: scan.exclusive_scan_plain(mask), reps=20)
+        lib_ms = cuda_ms(lambda: torch.cumsum(mask, 0, dtype=mask.dtype),
+                         reps=20)
+        f_ms = cuda_ms(lambda: scan.exclusive_scan(plane), reps=20)
+        big = torch.randint(0, 2, (2 ** 24 + 3,), device=dev,
+                            dtype=torch.int32, generator=gen)
+        big_ms = cuda_ms(lambda: scan.exclusive_scan(big), reps=10)
+        big_lib = cuda_ms(lambda: torch.cumsum(big, 0, dtype=big.dtype),
+                          reps=10)
+        bound_ms, bound_by = bound(8 * n, 0)
+        report["scan"] = {
+            "name": "scan", "route": "cuda", "source": src + "scan.cu",
+            "replaces": "pathtracer_tpu/ops/scan.py:67", "launches": 0,
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+        log(f"kernel scan: {n} lanes ({int(mask.sum())} live), int32 "
+            f"bit-equal (and at n in {RAGGED}), kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, torch.cumsum {lib_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms by {bound_by}; float32 plane {f_ms:.4f} ms, "
+            f"max_abs_err {f_err:.3g} (tolerance {f_tol:.3g}), repeatable; "
+            f"n=2**24+3: kernel {big_ms:.4f} ms, torch.cumsum "
+            f"{big_lib:.4f} ms, bound {bound(8 * big.shape[0], 0)[0]:.4f} ms")
+
+        # -- 10. the scan's API on the bounce-1 state -------------------------
+        t, _, mat = intersect_scene(scene, settings.geom_types, state.origin,
+                                    state.direction,
+                                    bvh_impl=settings.bvh_impl, active=live)
+        keys = torch.where(t > 0.0, mat, 0)
+        n_bits = max(1, int(keys.max()).bit_length())
+        torch.cuda.synchronize()
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        packed, count = scan.compact(state, live)
+        n_compact = kernels.LAUNCHES["scan"]
+        s_keys, s_state = scan.sort_by_key(keys, state, n_bits=n_bits)
+        torch.cuda.synchronize()
+        n_sort = kernels.LAUNCHES["scan"] - n_compact
+        report["scan"]["launches"] = kernels.LAUNCHES["scan"]
+        log(f"scan API on the bounce-1 state: compact {int(count)} live of "
+            f"{n} ({n_compact} scan launch), radix sort of the material "
+            f"keys, {n_bits} bits ({n_sort} scan launches)")
+        if n_compact != 1 or n_sort != n_bits:
+            raise AssertionError("scan API: expected 1 and n_bits launches")
+        with mock.patch.object(scan, "exclusive_scan",
+                               scan.exclusive_scan_plain):
+            p_packed, p_count = scan.compact(state, live)
+        if int(count) != int(p_count) or not all(
+                torch.equal(a, b) for a, b in zip(leaves(packed),
+                                                  leaves(p_packed))):
+            raise AssertionError("compact differs from its plain version")
+        w_keys, perm = torch.sort(keys, stable=True)
+        want = scan.gather_tree(state, perm)
+        if not torch.equal(s_keys, w_keys) or not all(
+                torch.equal(a, b) for a, b in zip(leaves(s_state),
+                                                  leaves(want))):
+            raise AssertionError("sort_by_key differs from torch.sort")
+
+    # -- 11. the engine modes at 800x800 --------------------------------------
+    surv = ray_survival(c_scene, c_set, 1).tolist()
+    mean_len = sum(surv[:-1]) / surv[0]
+    log(f"cornell {c_set.width}x{c_set.height} d{c_set.trace_depth} "
+        f"ray_survival {surv}: {mean_len:.3f} bounces a path")
+    modes = {"sorted": {"sort_materials": True},
+             "tiled": {"compact": True, "compact_tile": 16000},
+             "persistent": {}}
+    for name, sc, st, masked_ms in (("teapot", scene, settings, teapot_ms),
+                                    ("cornell", c_scene, c_set, cornell_ms)):
+        for mode, kw in modes.items():
+            m_set = dataclasses.replace(st, **kw)
+            fn = render_persistent if mode == "persistent" else render
+            steps = [0]
+            real_step = persistent._step
+
+            def counted(*a, **k):
+                steps[0] += 1
+                return real_step(*a, **k)
+
+            fn(sc, m_set, iterations=1, seed=0)              # warm-up
+            torch.cuda.synchronize()
+            for k in kernels.LAUNCHES:
+                kernels.LAUNCHES[k] = 0
+            with mock.patch.object(persistent, "_step", counted):
+                t0 = time.perf_counter()
+                img = fn(sc, m_set, iterations=MODE_ITERS, seed=0)
+                torch.cuda.synchronize()
+            ms = 1000.0 * (time.perf_counter() - t0) / MODE_ITERS
+            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            extra = (f", {steps[0] / MODE_ITERS:.1f} steps a frame"
+                     if mode == "persistent" else "")
+            log(f"{name} {st.width}x{st.height} d{st.trace_depth} {mode}: "
+                f"{ms:.2f} ms/frame over {MODE_ITERS} iterations (masked "
+                f"{masked_ms:.2f}){extra}, launches {launches}")
+            if name == "teapot":
+                for k in ("cull", "stream"):
+                    if launches.get(k, 0) <= 0:
+                        raise AssertionError(f"teapot {mode} never launched "
+                                             f"the {k} kernel")
+            if not np.isfinite(img).all() or not img.max() > 0:
+                raise AssertionError(f"{name} {mode} image is not finite or "
+                                     "all zero")
+
+    # -- 12. the engine modes vs masked at 64x64 d4 ----------------------------
+    c_small, cs_set = load_scene(CORNELL, dev,
+                                 overrides={"RES": [64, 64], "DEPTH": 4})
+    for name, sc, st in (("teapot", small, s_set), ("cornell", c_small,
+                                                    cs_set)):
+        ref = render(sc, st, iterations=2, seed=0)
+        for mode, kw in (("sorted", {"sort_materials": True}),
+                         ("tiled", {"compact": True, "compact_tile": 1024})):
+            image_agreement(f"{name} 64x64 d4 {mode} vs masked",
+                            render(sc, dataclasses.replace(st, **kw),
+                                   iterations=2, seed=0), ref)
+        image_agreement(f"{name} 64x64 d4 persistent vs masked",
+                        render_persistent(sc, st, iterations=2, seed=0), ref)
+
+    # -- 13. results -----------------------------------------------------------
     log(json.dumps({"kernels": list(report.values())}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

@@ -1,18 +1,23 @@
 """Command-line render with the port (the counterpart of render.py):
 
     python -m pathtracer_tpu_torch scenes/teapot.json --res 800 --spp 16 \
-        --depth 4 --out teapot.png --seed 0 [--bvh wide] [--device cuda]
+        --depth 4 --out teapot.png --seed 0 [--bvh wide] [--device cuda] \
+        [--engine persistent] [--chunk 16] [--no-early-exit] \
+        [--checkpoint ck.npz]
 
 Renders on the CUDA device (`--device`, default "cuda"); without one it
 fails rather than fall back. `--device cpu` runs on the CPU, where every
 kernel's plain PyTorch version runs. `--bvh` picks the mesh intersector
 (default: the loader's pick, "binned" for mesh scenes) and loads the tables
-it needs. Writes the PNG and prints the time per iteration with the device
-it ran on.
+it needs. `--engine` picks the wavefront engine (default) or the persistent
+one (identical images). `--checkpoint FILE` resumes from FILE if it exists
+and saves the accumulation to it after rendering. Writes the PNG and prints
+the time per iteration with the device it ran on.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
@@ -31,15 +36,28 @@ def main(argv=None) -> None:
     ap.add_argument("--depth", type=int, default=None, help="override DEPTH")
     ap.add_argument("--out", type=str, default=None)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--chunk", type=int, default=16,
+                    help="iterations between progress points (checkpoints)")
+    ap.add_argument("--no-early-exit", action="store_true",
+                    help="run every bounce, even when no path is live")
+    ap.add_argument("--checkpoint", type=str, default=None,
+                    help="checkpoint file: resumes from it if present, and "
+                         "saves to it after rendering")
     ap.add_argument("--bvh", choices=BVH_IMPLS, default=None,
                     help="mesh intersector override (default: the loader's "
                          "pick)")
+    ap.add_argument("--engine", choices=("wavefront", "persistent"),
+                    default="wavefront",
+                    help="wavefront: masked fixed-pool bounce loop. "
+                         "persistent: rotating work-queue lanes (identical "
+                         "images)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to render on (default cuda)")
     args = ap.parse_args(argv)
 
-    from . import load_scene, render
+    from . import load_scene, render, render_persistent
     from .io.image import reference_style_name, save_png
+    from .utils.checkpoint import load_checkpoint, save_checkpoint
 
     device = resolve_device(args.device)
     overrides = {}
@@ -53,19 +71,43 @@ def main(argv=None) -> None:
                                  overrides=overrides or None,
                                  bvh_impl=args.bvh)
 
+    start_iteration, accum, seed = 0, None, args.seed
+    if args.checkpoint and os.path.exists(args.checkpoint):
+        accum, start_iteration, seed = load_checkpoint(
+            args.checkpoint, settings, device)
+        print(f"resuming from {args.checkpoint} at {start_iteration} spp")
+
+    final = {}
+
+    def progress(done, a):
+        final.update(done=done, accum=a)
+
     t0 = time.perf_counter()
-    img = render(scene, settings, seed=args.seed)
+    if args.engine == "persistent":
+        # persistent chunks drain fully, so every chunk boundary is a
+        # checkpoint, as with the wavefront engine
+        img = render_persistent(scene, settings, seed=seed,
+                                chunk=max(args.chunk, 32), progress=progress,
+                                accum=accum, start_iteration=start_iteration)
+    else:
+        img = render(scene, settings, seed=seed, chunk=args.chunk,
+                     early_exit=not args.no_early_exit, accum=accum,
+                     start_iteration=start_iteration, progress=progress)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
-    name = args.out or reference_style_name(settings.image_name,
-                                            settings.iterations)
+    if args.checkpoint and final:
+        save_checkpoint(args.checkpoint, final["accum"], final["done"],
+                        settings, seed=seed)
+        print(f"checkpoint -> {args.checkpoint} ({final['done']} spp)")
+    name = args.out or reference_style_name(
+        settings.image_name, start_iteration + settings.iterations)
     save_png(img, name)
     print(f"{settings.width}x{settings.height} d{settings.trace_depth} "
           f"{settings.iterations} iterations on {device.type}, bvh "
           f"{settings.bvh_impl}: "
           f"{1000.0 * dt / max(settings.iterations, 1):.2f} ms/iteration "
-          f"-> {name}")
+          f"({args.engine} engine) -> {name}")
 
 
 if __name__ == "__main__":

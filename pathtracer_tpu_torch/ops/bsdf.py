@@ -189,15 +189,16 @@ def shade(origin: Vec3, direction: Vec3, color: Vec3,
           t: torch.Tensor, normal: Vec3, mat_id: torch.Tensor,
           materials: MaterialArrays, uniforms,
           any_glossy: bool = True, any_refractive: bool = True,
-          depth_quirk: bool = False, rr_depth: int = 0,
-          rr_start: int = 0):
+          depth_quirk: bool = False, rr_depth=0, rr_start: int = 0):
     """Vectorized shadeRealMaterial (pathtrace.cu:524-571), the port of
     pathtracer_tpu/ops/bsdf.py:253.
 
     remaining_bounces [N] i32 (>0 live, ==0 done, <0 gathered); uniforms is a
     tuple of [N] draws (pick, u1, u2, fresnel[, rr]). With rr_start > 0, a
     path that scatters at depth rr_depth >= rr_start survives with
-    probability clamp(max(throughput), 0.05, 1) and is divided by it.
+    probability clamp(max(throughput), 0.05, 1) and is divided by it;
+    rr_depth is a host int (the whole pool at one bounce) or an [N] tensor
+    of per-lane depths (the persistent engine).
     depth_quirk=False: a path whose bounce budget runs out contributes
     nothing (textbook); True replicates the reference code's raw-throughput
     gather. Returns updated (origin, direction, color, remaining_bounces);
@@ -235,8 +236,11 @@ def shade(origin: Vec3, direction: Vec3, color: Vec3,
                                       torch.maximum(new_color.y,
                                                     new_color.z)),
                         0.05, 1.0)
-        rr_active = (do_scatter if rr_depth >= rr_start
-                     else torch.zeros_like(do_scatter))
+        if isinstance(rr_depth, torch.Tensor):      # per-lane depths
+            rr_active = torch.logical_and(do_scatter, rr_depth >= rr_start)
+        else:
+            rr_active = (do_scatter if rr_depth >= rr_start
+                         else torch.zeros_like(do_scatter))
         killed = torch.logical_and(rr_active, uniforms[4] >= p)
         boost = torch.where(torch.logical_and(rr_active,
                                               torch.logical_not(killed)),

@@ -1,10 +1,11 @@
 """Build, load and launch the hand-written CUDA kernels of csrc/.
 
 The mesh-intersection kernels (csrc/cull.cu, stream.cu, packet.cu, wide.cu,
-brute.cu) are compiled by nvcc into one shared library with a plain C
-interface, loaded with ctypes. The library is built on first use, from the package's sources only,
-into build/torch_kernels/ at the repo root; its file name carries a hash of
-the sources and flags, so a changed source is rebuilt and a stale library is
+brute.cu) and the exclusive scan (csrc/scan.cu) are compiled by nvcc into
+one shared library with a plain C interface, loaded with ctypes. The
+library is built on first use, from the package's sources only, into
+build/torch_kernels/ at the repo root; its file name carries a hash of the
+sources and flags, so a changed source is rebuilt and a stale library is
 never loaded.
 
 `LAUNCHES` counts the launches of each kernel: a wrapper adds one where it
@@ -26,7 +27,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 REPO_ROOT = os.path.dirname(os.path.dirname(CSRC))
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "torch_kernels")
-SOURCES = ("cull.cu", "stream.cu", "packet.cu", "wide.cu", "brute.cu")
+SOURCES = ("cull.cu", "stream.cu", "packet.cu", "wide.cu", "brute.cu",
+           "scan.cu")
 HEADERS = ("common.cuh",)
 # -fmad=false and no fast math: each kernel matches its plain PyTorch version
 # bit for bit (see csrc/common.cuh)
@@ -35,7 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 LAUNCHES = {"cull": 0, "stream": 0, "packet": 0, "wide_push": 0,
-            "wide_mask": 0, "brute": 0}
+            "wide_mask": 0, "brute": 0, "scan": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,6 +59,8 @@ _ARGTYPES = {
                     + [_I, _P],
     # device, coeffs, attrs, n_tris, 6 ray planes, 5 outputs, n, stream
     "pt_brute": [_I, _P, _P, _I] + [_P] * 6 + [_P] * 5 + [_I, _P],
+    # device, x, out, scratch, n, is_float, stream
+    "pt_scan": [_I, _P, _P, _P, _I, _I, _P],
 }
 
 _lib = None

@@ -19,20 +19,17 @@ M32 = 0xFFFFFFFF
 GOLDEN = 0x9E3779B9
 
 
-def _u32(x: int) -> int:
-    """A Python int wrapped as uint32 (depths -1/-2 -> 0xFFFFFFFF/...FE)."""
+def _u32(x):
+    """A host int or an integer tensor wrapped as uint32 (an int64 tensor
+    for a tensor; depths -1/-2 -> 0xFFFFFFFF/...FE)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.int64) & M32
     return int(x) & M32
 
 
-def _pcg_int(x: int) -> int:
-    """_pcg on a Python int (scalar keys)."""
-    x = (x * 747796405 + 2891336453) & M32
-    x = (((x >> ((x >> 28) + 4)) ^ x) * 277803737) & M32
-    return (x >> 22) ^ x
-
-
-def _pcg(x: torch.Tensor) -> torch.Tensor:
-    """One round of PCG-RXS-M-XS on uint32 words held in int64."""
+def _pcg(x):
+    """One round of PCG-RXS-M-XS on uint32 words held in int64 (or on a
+    Python int, for the scalar keys)."""
     x = (x * 747796405 + 2891336453) & M32
     x = (((x >> ((x >> 28) + 4)) ^ x) * 277803737) & M32
     return (x >> 22) ^ x
@@ -43,13 +40,25 @@ def _to_unit(bits: torch.Tensor) -> torch.Tensor:
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def decision_state(seed: int, sample: int, depth: int,
+def _mul32(x, c: int):
+    """(x * c) mod 2**32 for uint32 words x (int64 tensor or Python int)
+    and a 32-bit constant c, by 16-bit halves of c so that no product
+    reaches 2**63."""
+    lo = x * (c & 0xFFFF)
+    hi = (x * (c >> 16)) & 0xFFFF
+    return (lo + (hi << 16)) & M32
+
+
+def decision_state(seed: int, sample, depth,
                    pixel: torch.Tensor) -> torch.Tensor:
     """[n] uint32 stream states (as int64) keyed on (seed, sample, depth,
-    pixel), bit-identical to pathtracer_tpu/ops/rng.py:80. `seed`, `sample`
-    and `depth` are host ints; raygen uses depth -1 (AA) and -2 (DoF)."""
-    h = _pcg_int((_u32(seed) * GOLDEN + _u32(sample)) & M32)
-    h = _pcg_int(h ^ ((_u32(depth) * 0x85EBCA6B) & M32))
+    pixel), bit-identical to pathtracer_tpu/ops/rng.py:80. `seed` is a host
+    int; `sample` and `depth` are host ints (the wavefront engine: the
+    whole pool at one iteration and bounce) or [n] integer tensors (the
+    persistent engine's per-lane schedule), negatives wrapped to uint32
+    either way. Raygen uses depth -1 (AA) and -2 (DoF)."""
+    h = _pcg((_u32(seed) * GOLDEN + _u32(sample)) & M32)
+    h = _pcg(h ^ _mul32(_u32(depth), 0x85EBCA6B))
     p = pixel.to(torch.int64) & M32
     return _pcg(h ^ ((p * 0xC2B2AE35) & M32))
 

@@ -137,7 +137,7 @@ class SceneArrays:
 @dataclasses.dataclass(frozen=True)
 class RenderSettings:
     """Static, hashable render configuration (the JAX package's, minus the
-    sorted/compact modes and the threefry switch this port does not have)."""
+    threefry switch: the port draws from the PCG hash streams only)."""
 
     width: int
     height: int
@@ -146,6 +146,11 @@ class RenderSettings:
     image_name: str = "render"
     jitter: bool = True          # JITTER: Gaussian AA, sigma=0.005, clamp +-0.5
     dof: bool = True             # DOF: thin-lens, active iff lens_radius > 0
+    sort_materials: bool = False  # COALESCED: material-key sort each bounce
+    # STREAM_COMPACT mode: tile-granular work skipping (engine/wavefront.py
+    # bounce_step_tiled); compact_tile must divide the pool
+    compact: bool = False
+    compact_tile: int = 16384    # lanes per skippable tile (compact mode)
     # material-table capability flags (set by the loader): BSDF branches no
     # material can take are not computed (ops/bsdf.py scatter_ray)
     any_glossy: bool = True

@@ -3,10 +3,12 @@ pathtracer_tpu/utils/profiling.py):
 
     python -m pathtracer_tpu_torch.utils.profiling scenes/teapot.json \
         [--iters 3] [--res R] [--depth D] [--json out.json] [--device cuda] \
-        [--bvh wide]
+        [--bvh wide] [--mode masked|sorted|tiled|persistent] [--tile 16000]
 
 Three measurements of whole iterations (`render_iteration` with early exit,
-as `render` runs it), each after one warm-up iteration:
+as `render` runs it, in the wavefront mode `--mode`; or, for
+`--mode persistent`, the persistent engine over as many samples), each after
+one warm-up iteration:
 
   * frame_ms: plain wall time per iteration, nothing traced;
   * device_profile: torch.profiler over the iterations. Device kernels are
@@ -26,20 +28,26 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import time
 from unittest import mock
 
 import torch
 
-from ..engine import wavefront
+from ..engine import persistent, wavefront
 from ..ops import binned, brute, bvh_packet, intersect, wide
 from .device import resolve_device
 
-# (module, function, stage name), outermost first
+MODES = ("masked", "sorted", "tiled", "persistent")
+
+# (module, function, stage name), outermost first; the persistent engine's
+# step has its own references to the stage functions
 STAGES = (
     (wavefront, "generate_paths", "raygen"),
+    (persistent, "generate_camera_rays", "raygen"),
     (wavefront, "intersect_scene", "intersect"),
+    (persistent, "intersect_scene", "intersect"),
     (intersect, "box_intersect", "intersect.box"),
     (intersect, "sphere_intersect", "intersect.sphere"),
     (binned, "mesh_intersect_binned", "intersect.mesh_binned"),
@@ -49,7 +57,10 @@ STAGES = (
     (bvh_packet, "packet_walk", "mesh.packet"),
     (wide, "wide_walk", "mesh.wide"),
     (brute, "brute", "mesh.brute"),
+    (wavefront, "sort_by_key_segmented", "mode.sorts"),
+    (wavefront, "sort_by_key_multisort", "mode.sorts"),
     (wavefront, "shade", "shade"),
+    (persistent, "shade", "shade"),
 )
 
 # device kernel name fragment -> kind, first match wins
@@ -86,21 +97,41 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _iterations(scene, settings, iters: int, seed: int, start: int) -> None:
-    accum = wavefront.zero_accum(settings, scene.device)
-    wavefront.render_chunk(scene, settings, accum, start, iters, seed, True)
+def mode_settings(settings, mode: str, tile: int = 16000):
+    """The settings of wavefront mode `mode` (persistent: unchanged)."""
+    if mode == "sorted":
+        return dataclasses.replace(settings, sort_materials=True)
+    if mode == "tiled":
+        return dataclasses.replace(settings, compact=True, compact_tile=tile)
+    return settings
+
+
+def _iterations(scene, settings, iters: int, seed: int, start: int,
+                mode: str = "masked") -> None:
+    """Iterations start .. start + iters - 1 (persistent: those samples)."""
+    if mode == "persistent":
+        state = persistent.fresh_lanes(settings, scene.device,
+                                       start_spp=start - 1)
+        persistent.render_persistent_chunk(scene, settings, state,
+                                           start - 1 + iters, seed)
+    else:
+        accum = wavefront.zero_accum(settings, scene.device)
+        wavefront.render_chunk(scene, settings, accum, start, iters, seed,
+                               True)
     _sync(scene.device)
 
 
-def frame_ms(scene, settings, iters: int = 3, seed: int = 0) -> float:
+def frame_ms(scene, settings, iters: int = 3, seed: int = 0,
+             mode: str = "masked") -> float:
     """Wall milliseconds per iteration, after one warm-up iteration."""
-    _iterations(scene, settings, 1, seed, 1)
+    _iterations(scene, settings, 1, seed, 1, mode)
     t0 = time.perf_counter()
-    _iterations(scene, settings, iters, seed, 2)
+    _iterations(scene, settings, iters, seed, 2, mode)
     return 1000.0 * (time.perf_counter() - t0) / iters
 
 
-def device_profile(scene, settings, iters: int = 3, seed: int = 0) -> dict:
+def device_profile(scene, settings, iters: int = 3, seed: int = 0,
+                   mode: str = "masked") -> dict:
     """torch.profiler over `iters` iterations: per frame, the traced wall
     ms, and on a CUDA device the device kernel ms, launches and busy share,
     in all and by kind."""
@@ -111,10 +142,10 @@ def device_profile(scene, settings, iters: int = 3, seed: int = 0) -> dict:
     on_gpu = dev.type == "cuda"
     activities = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if on_gpu else [])
-    _iterations(scene, settings, 1, seed, 1)
+    _iterations(scene, settings, 1, seed, 1, mode)
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        _iterations(scene, settings, iters, seed, 2)
+        _iterations(scene, settings, iters, seed, 2, mode)
         wall_ms = 1000.0 * (time.perf_counter() - t0) / iters
     out = {"wall_ms": wall_ms, "device_ms": None, "launches": None,
            "busy_share": None, "by_kind": None}
@@ -137,7 +168,8 @@ def device_profile(scene, settings, iters: int = 3, seed: int = 0) -> dict:
     return out
 
 
-def stage_times(scene, settings, iters: int = 3, seed: int = 0) -> dict:
+def stage_times(scene, settings, iters: int = 3, seed: int = 0,
+                mode: str = "masked") -> dict:
     """Per frame, each stage's synchronized wall ms and number of calls."""
     dev = scene.device
     acc = {}
@@ -153,13 +185,13 @@ def stage_times(scene, settings, iters: int = 3, seed: int = 0) -> dict:
             return res
         return wrapper
 
-    _iterations(scene, settings, 1, seed, 1)
+    _iterations(scene, settings, 1, seed, 1, mode)
     with contextlib.ExitStack() as stack:
         for mod, attr, name in STAGES:
             stack.enter_context(mock.patch.object(
                 mod, attr, timed(getattr(mod, attr), name)))
         t0 = time.perf_counter()
-        _iterations(scene, settings, iters, seed, 2)
+        _iterations(scene, settings, iters, seed, 2, mode)
         wall = 1000.0 * (time.perf_counter() - t0) / iters
     stages = {name: {"ms": acc[name][0] / iters, "calls": acc[name][1] / iters}
               for _, _, name in STAGES if name in acc}
@@ -167,27 +199,32 @@ def stage_times(scene, settings, iters: int = 3, seed: int = 0) -> dict:
 
 
 def report(scene_file: str, device, iters: int = 3, seed: int = 0,
-           overrides: dict | None = None, bvh: str | None = None) -> dict:
+           overrides: dict | None = None, bvh: str | None = None,
+           mode: str = "masked", tile: int = 16000) -> dict:
     """All three measurements of one scene on `device`, through the mesh
-    intersector `bvh` (None: the loader's pick)."""
+    intersector `bvh` (None: the loader's pick), in engine mode `mode`
+    (`tile`: the tiled mode's compact_tile)."""
     from ..scene.loader import load_scene
     scene, settings = load_scene(scene_file, device, overrides=overrides,
                                  bvh_impl=bvh)
+    settings = mode_settings(settings, mode, tile)
+    args = (scene, settings, iters, seed, mode)
     with torch.inference_mode():
         return {
             "scene": scene_file, "device": str(scene.device),
-            "bvh": settings.bvh_impl,
+            "bvh": settings.bvh_impl, "mode": mode,
             "res": [settings.width, settings.height],
             "depth": settings.trace_depth, "iters": iters,
-            "frame_ms": frame_ms(scene, settings, iters, seed),
-            "device_profile": device_profile(scene, settings, iters, seed),
-            "stage_times": stage_times(scene, settings, iters, seed),
+            "frame_ms": frame_ms(*args),
+            "device_profile": device_profile(*args),
+            "stage_times": stage_times(*args),
         }
 
 
 def format_report(rep: dict) -> str:
     lines = [f"{rep['scene']} {rep['res'][0]}x{rep['res'][1]} "
-             f"d{rep['depth']} bvh {rep['bvh']} on {rep['device']}, "
+             f"d{rep['depth']} bvh {rep['bvh']} {rep['mode']} on "
+             f"{rep['device']}, "
              f"{rep['iters']} iterations:"
              f" untraced {rep['frame_ms']:.2f} ms/frame"]
     prof = rep["device_profile"]
@@ -222,6 +259,11 @@ def main(argv=None) -> None:
                     help="torch device to profile on (default cuda)")
     ap.add_argument("--bvh", choices=intersect.BVH_IMPLS, default=None,
                     help="mesh intersector (default: the loader's pick)")
+    ap.add_argument("--mode", choices=MODES, default="masked",
+                    help="engine mode (default masked)")
+    ap.add_argument("--tile", type=int, default=16000,
+                    help="compact_tile of --mode tiled (must divide the "
+                         "pool; default 16000, for 800x800)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     overrides = {}
@@ -232,7 +274,7 @@ def main(argv=None) -> None:
     reps = []
     for s in args.scenes:
         rep = report(s, device, args.iters, args.seed, overrides or None,
-                     args.bvh)
+                     args.bvh, args.mode, args.tile)
         print(format_report(rep), flush=True)
         reps.append(rep)
     if args.json:

@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from pathtracer_tpu_torch import load_scene
-from pathtracer_tpu_torch.ops import binned, brute, bvh_packet, kernels, wide
+from pathtracer_tpu_torch.ops import (binned, brute, bvh_packet, kernels,
+                                      scan, wide)
 from pathtracer_tpu_torch.scene.fixtures import scene_path
 from pathtracer_tpu_torch.utils.vec import Vec3
 
@@ -252,3 +253,66 @@ def test_binned_pipeline_on_the_card_matches_cpu():
     assert torch.equal(res_g[2].cpu()[a], res_c[2][a])
     for x, y in zip(res_g[1], res_c[1]):
         torch.testing.assert_close(x.cpu()[a], y[a], rtol=0, atol=1e-6)
+
+
+def test_cpu_scan_takes_the_plain_version_without_building(monkeypatch):
+    def no_build():
+        raise AssertionError("the CPU path built the kernel library")
+
+    monkeypatch.setattr(kernels, "build", no_build)
+    monkeypatch.setattr(kernels, "_lib", None)
+    before = dict(kernels.LAUNCHES)
+    x = torch.arange(5000, dtype=torch.int32)
+    assert torch.equal(scan.exclusive_scan(x), scan.exclusive_scan_plain(x))
+    scan.sort_by_key(x % 7, x, n_bits=3)
+    scan.compact(x, x % 3 == 0)
+    assert kernels.LAUNCHES == before
+
+
+# the scan's float32 tolerance: two orders of summing n float32 values differ
+# by at most about (the longer chain of dependent adds) * 2**-24 * sum |x|;
+# 1e-5 * sum |x| allows chains of some 170 adds (the kernel's is under 50)
+SCAN_F32_RTOL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 4095, 4097, 640000, 2 ** 24 + 3])
+def test_scan_kernel_equals_plain_int32(n):
+    """Bit for bit, including sums that wrap int32."""
+    _need_cuda()
+    r = np.random.default_rng(n)
+    for x in (r.integers(0, 2, n), r.integers(-2 ** 31, 2 ** 31 - 1, n)):
+        x = torch.from_numpy(x.astype(np.int32)).cuda()
+        before = kernels.LAUNCHES["scan"]
+        got = scan.exclusive_scan(x)
+        assert kernels.LAUNCHES["scan"] == before + 1
+        assert got.dtype == torch.int32
+        assert torch.equal(got, scan.exclusive_scan_plain(x))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4097, 640000])
+def test_scan_kernel_float32_within_tolerance_and_repeatable(n):
+    _need_cuda()
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal(
+        n).astype(np.float32)).cuda()
+    got = scan.exclusive_scan(x)
+    err = float((got - scan.exclusive_scan_plain(x)).abs().max())
+    assert err <= SCAN_F32_RTOL * float(x.abs().sum()), err
+    assert float(got[0]) == 0.0
+    assert torch.equal(got, scan.exclusive_scan(x))     # the same bits
+
+
+@pytest.mark.cuda
+def test_scan_kernel_rejects_bad_inputs():
+    _need_cuda()
+    x = torch.arange(100, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):
+        scan.exclusive_scan(x.long())
+    with pytest.raises(ValueError):
+        scan.exclusive_scan(x[::2])                    # not contiguous
+    with pytest.raises(ValueError):
+        scan.scan_kernel(x.cpu())                      # off the card
+    with pytest.raises(ValueError):
+        scan.exclusive_scan(x.reshape(10, 10))

@@ -84,3 +84,23 @@ def test_other_mesh_paths_report_their_stage(bvh, stage):
     stages = rep["stage_times"]["stages"]
     assert stages[stage]["calls"] == stages["intersect"]["calls"]
     assert "intersect.mesh_binned" not in stages
+
+
+@pytest.mark.parametrize("mode", ["sorted", "tiled", "persistent"])
+def test_engine_modes_report_their_stages(mode):
+    """--mode profiles the sorted and tiled bounces and the persistent
+    engine; the stages are counted in each."""
+    rep = profiling.report(scene_path("cornell"), "cpu", iters=1,
+                           overrides={"RES": [16, 16], "DEPTH": 2},
+                           mode=mode, tile=64)
+    assert rep["mode"] == mode and rep["frame_ms"] > 0
+    stages = rep["stage_times"]["stages"]
+    assert stages["raygen"]["calls"] >= 1
+    assert stages["shade"]["calls"] == stages["intersect"]["calls"] >= 1
+    if mode == "sorted":
+        # a sort a bounce and the final unsort
+        assert stages["mode.sorts"]["calls"] == stages["shade"]["calls"] + 1
+    else:
+        assert "mode.sorts" not in stages
+    if mode == "tiled":                   # 4 tiles of 64 a bounce
+        assert stages["shade"]["calls"] % 4 == 0
