@@ -12,8 +12,10 @@ Phases, each fatal on failure:
      stream and packet, "wide" for the 8-wide walk, "brute" for the brute
      kernel), and each kernel is held against its plain PyTorch version on
      those inputs, with median times and the least time the card could
-     take for the work these inputs need (bound); the push walk is also
-     timed with its cull, which must not change its outputs;
+     take for the work these inputs need (bound), and each kernel's device
+     time per call from torch.profiler; the push walk is also timed with
+     its cull, which must not change its outputs; the packet walk also on
+     every live lane (bvh_impl "pallas" contract);
   4. teapot 800x800 d4 through pathtracer_tpu_torch.render on the default
      path (binned), with the launch counters reset just before and read
      just after: every kernel of the path must have run, and the image
@@ -29,10 +31,11 @@ Phases, each fatal on failure:
   8. teapot 64x64 d4, 2 iterations, through "wide" and "brute": each image
      must agree with the "binned" one;
   9. the scan kernel (csrc/scan.cu) against its plain version: the bounce-1
-     liveness mask as int32 (640,000 lanes) and ragged sizes bit for bit, a
-     float32 plane of that pool within SCAN_F32_RTOL and the same in two
-     runs; median times beside the bound (8 bytes an element) and
-     torch.cumsum's;
+     liveness mask as int32 (640,000 lanes) and ragged sizes bit for bit,
+     back to back on one stream with n shrinking and growing, a float32
+     plane of that pool within SCAN_F32_RTOL and the same in two runs;
+     median times and device times beside the bound (8 bytes an element)
+     and torch.cumsum's;
  10. the scan's API on the bounce-1 state, counters reset just before and
      read just after: compact by liveness (one scan launch) must equal its
      plain version, and the radix sort_by_key of the material keys (one
@@ -82,7 +85,7 @@ OPS_BRUTE_TEST = 11
 RAGGED = (1, 31, 4095, 4097, 2 ** 24 + 3)
 # the scan's float32 tolerance: two orders of summing n float32 values differ
 # by at most about (the longer chain of dependent adds) * 2**-24 * sum |x|;
-# 1e-5 * sum |x| allows chains of some 170 adds (the kernel's is under 50)
+# 1e-5 * sum |x| allows chains of some 170 adds (the kernel's is under 60)
 SCAN_F32_RTOL = 1e-5
 MODE_ITERS = 2       # timed iterations of each engine mode at 800x800
 
@@ -97,30 +100,6 @@ def leaves(tree) -> list:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median milliseconds of fn() on the card, by CUDA events."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
 
 
 def compare(name, got, ref, float_idx, int_idx, exact_idx):
@@ -232,6 +211,8 @@ def main() -> int:
         return 2
 
     # -- 1. setup --------------------------------------------------------
+    from pathtracer_tpu_torch.utils.kernel_bench import (card_line, cuda_ms,
+                                                         device_ms)
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -252,7 +233,8 @@ def main() -> int:
     kernels.library()
     log(f"build: {secs:.2f} s -> {path}")
     for line in build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if ("registers" in line or "spill" in line or "Compiling" in line
+                or "smem" in line):
             log(f"  ptxas: {line.strip()}")
 
     dev = torch.device(DEVICE)
@@ -346,6 +328,7 @@ def main() -> int:
             err = compare(name, got, ref, f_idx, i_idx, ex_idx)
             outputs[name] = got
             ms = cuda_ms(lambda: kern(*args), reps=20)
+            dev_ms, _ = device_ms(lambda: kern(*args), reps=20)
             plain_ms = cuda_ms(lambda: plain(*args), reps=5, warmup=1)
             # the work these inputs need: ray planes of the lanes the kernel
             # must answer (live for cull, with a treelet for stream, active
@@ -376,10 +359,12 @@ def main() -> int:
             report[name] = {
                 "name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": 0, "max_abs_err": err,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None}
+                "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None}
             log(f"kernel {name}: {args[-1].shape[0]} lanes ({n_need} "
-                f"needing work), max_abs_err {err:.3g}, kernel {ms:.4f} ms, "
+                f"needing work), max_abs_err {err:.3g}, kernel {ms:.4f} ms "
+                f"(device {dev_ms:.4f}), "
                 f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
                 f"{bound_by} ({n_bytes} bytes, {ops} FP32 ops"
                 + (f", {counts}" if counts else "") + ")")
@@ -417,9 +402,11 @@ def main() -> int:
                       [4], [0])
         report["packet"]["max_abs_err"] = max(report["packet"]["max_abs_err"],
                                               err)
+        all_ms = cuda_ms(lambda: bvh_packet.packet_walk(*w_args), 20)
+        all_dev, _ = device_ms(lambda: bvh_packet.packet_walk(*w_args), 20)
+        report["packet"].update(all_live_ms=all_ms, all_live_device_ms=all_dev)
         log(f"kernel packet on all {int(live.sum())} live lanes: max_abs_err "
-            f"{err:.3g}, kernel "
-            f"{cuda_ms(lambda: bvh_packet.packet_walk(*w_args), 5):.3f} ms")
+            f"{err:.3g}, kernel {all_ms:.4f} ms (device {all_dev:.4f})")
 
     # -- 4. teapot 800x800 d4 through the main path ---------------------------
     iters = 4
@@ -519,6 +506,14 @@ def main() -> int:
             raise AssertionError("scan: the liveness mask's scan differs on "
                                  f"{int((got != ref).sum())} lanes")
         gen = torch.Generator(device=dev).manual_seed(0)
+        # back to back on one stream, n shrinking and growing (the scratch's
+        # epochs and the tile counter's reset)
+        for n in (1, 4097, 2 ** 24 + 3, 31, mask.shape[0], 4095):
+            x = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), device=dev,
+                              dtype=torch.int32, generator=gen)
+            if not torch.equal(scan.exclusive_scan(x),
+                               scan.exclusive_scan_plain(x)):
+                raise AssertionError(f"scan: back-to-back n={n} differs")
         for n in RAGGED:
             x = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), device=dev,
                               dtype=torch.int32, generator=gen)
@@ -534,29 +529,42 @@ def main() -> int:
             raise AssertionError(f"scan: float32 error {f_err} over {f_tol},"
                                  " or two runs differ")
         n = mask.shape[0]
+
+        def lib(x):
+            return torch.cumsum(x, 0, dtype=x.dtype)
+
         ms = cuda_ms(lambda: scan.exclusive_scan(mask), reps=20)
+        dev_ms, _ = device_ms(lambda: scan.exclusive_scan(mask), reps=20)
         plain_ms = cuda_ms(lambda: scan.exclusive_scan_plain(mask), reps=20)
-        lib_ms = cuda_ms(lambda: torch.cumsum(mask, 0, dtype=mask.dtype),
-                         reps=20)
+        lib_ms = cuda_ms(lambda: lib(mask), reps=20)
+        lib_dev, _ = device_ms(lambda: lib(mask), reps=20)
         f_ms = cuda_ms(lambda: scan.exclusive_scan(plane), reps=20)
         big = torch.randint(0, 2, (2 ** 24 + 3,), device=dev,
                             dtype=torch.int32, generator=gen)
         big_ms = cuda_ms(lambda: scan.exclusive_scan(big), reps=10)
-        big_lib = cuda_ms(lambda: torch.cumsum(big, 0, dtype=big.dtype),
-                          reps=10)
+        big_dev, _ = device_ms(lambda: scan.exclusive_scan(big), reps=10)
+        big_lib = cuda_ms(lambda: lib(big), reps=10)
+        big_lib_dev, _ = device_ms(lambda: lib(big), reps=10)
         bound_ms, bound_by = bound(8 * n, 0)
+        big_bound = bound(8 * big.shape[0], 0)[0]
         report["scan"] = {
             "name": "scan", "route": "cuda", "source": src + "scan.cu",
             "replaces": "pathtracer_tpu/ops/scan.py:67", "launches": 0,
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+            "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms, "library_device_ms": lib_dev,
+            "big_n": big.shape[0], "big_ms": big_ms,
+            "big_device_ms": big_dev, "big_bound_ms": big_bound,
+            "big_library_ms": big_lib, "big_library_device_ms": big_lib_dev}
         log(f"kernel scan: {n} lanes ({int(mask.sum())} live), int32 "
-            f"bit-equal (and at n in {RAGGED}), kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, torch.cumsum {lib_ms:.4f} ms, bound "
+            f"bit-equal (and at n in {RAGGED}, and back to back), kernel "
+            f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms, "
+            f"torch.cumsum {lib_ms:.4f} ms (device {lib_dev:.4f}), bound "
             f"{bound_ms:.4f} ms by {bound_by}; float32 plane {f_ms:.4f} ms, "
             f"max_abs_err {f_err:.3g} (tolerance {f_tol:.3g}), repeatable; "
-            f"n=2**24+3: kernel {big_ms:.4f} ms, torch.cumsum "
-            f"{big_lib:.4f} ms, bound {bound(8 * big.shape[0], 0)[0]:.4f} ms")
+            f"n=2**24+3: kernel {big_ms:.4f} ms (device {big_dev:.4f}), "
+            f"torch.cumsum {big_lib:.4f} ms (device {big_lib_dev:.4f}), "
+            f"bound {big_bound:.4f} ms")
 
         # -- 10. the scan's API on the bounce-1 state -------------------------
         t, _, mat = intersect_scene(scene, settings.geom_types, state.origin,

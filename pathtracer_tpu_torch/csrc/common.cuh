@@ -57,11 +57,12 @@ struct Best {
 };
 
 // Moller-Trumbore against one packed triangle record tv[0..19]
-// (v0, e1, e2, n0, n1, n2, material_id); keeps the hit if strictly closer.
-__device__ __forceinline__ void tri_test(const float* __restrict__ tv,
-                                         float ox, float oy, float oz,
-                                         float dx, float dy, float dz,
-                                         Best& b) {
+// (v0, e1, e2, n0, n1, n2, material_id): true on a valid hit in front of the
+// origin, with its t and barycentrics u, v (a NaN t fails t >= 1e-6).
+__device__ __forceinline__ bool tri_hit(const float* __restrict__ tv,
+                                        float ox, float oy, float oz,
+                                        float dx, float dy, float dz,
+                                        float& t, float& u, float& v) {
   const float v0x = tv[0], v0y = tv[1], v0z = tv[2];
   const float e1x = tv[3], e1y = tv[4], e1z = tv[5];
   const float e2x = tv[6], e2y = tv[7], e2z = tv[8];
@@ -72,22 +73,37 @@ __device__ __forceinline__ void tri_test(const float* __restrict__ tv,
   const bool parallel = fabsf(a) < 1e-6f;
   const float f = 1.0f / (parallel ? 1.0f : a);
   const float sx = ox - v0x, sy = oy - v0y, sz = oz - v0z;
-  const float u = f * (sx * hx + sy * hy + sz * hz);
+  u = f * (sx * hx + sy * hy + sz * hz);
   const float qx = sy * e1z - sz * e1y;
   const float qy = sz * e1x - sx * e1z;
   const float qz = sx * e1y - sy * e1x;
-  const float v = f * (dx * qx + dy * qy + dz * qz);
-  const float t = f * (e2x * qx + e2y * qy + e2z * qz);
+  v = f * (dx * qx + dy * qy + dz * qz);
+  t = f * (e2x * qx + e2y * qy + e2z * qz);
   const bool valid = !parallel && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
                      (u + v) <= 1.0f && t >= 1e-6f;
-  if (valid && t > 0.0f && t < b.t) {
-    const float w = 1.0f - u - v;
-    b.t = t;
-    b.nx = w * tv[9] + u * tv[12] + v * tv[15];
-    b.ny = w * tv[10] + u * tv[13] + v * tv[16];
-    b.nz = w * tv[11] + u * tv[14] + v * tv[17];
-    b.mat = static_cast<int>(tv[18]);  // truncation, as astype(int32)
-  }
+  return valid && t > 0.0f;
+}
+
+// Make the hit (t, u, v) on record tv the lane's best: t, the raw
+// interpolated normal and the material.
+__device__ __forceinline__ void take_hit(const float* __restrict__ tv,
+                                         float t, float u, float v, Best& b) {
+  const float w = 1.0f - u - v;
+  b.t = t;
+  b.nx = w * tv[9] + u * tv[12] + v * tv[15];
+  b.ny = w * tv[10] + u * tv[13] + v * tv[16];
+  b.nz = w * tv[11] + u * tv[14] + v * tv[17];
+  b.mat = static_cast<int>(tv[18]);  // truncation, as astype(int32)
+}
+
+// Moller-Trumbore against one record; keeps the hit if strictly closer.
+__device__ __forceinline__ void tri_test(const float* __restrict__ tv,
+                                         float ox, float oy, float oz,
+                                         float dx, float dy, float dz,
+                                         Best& b) {
+  float t, u, v;
+  if (tri_hit(tv, ox, oy, oz, dx, dy, dz, t, u, v) && t < b.t)
+    take_hit(tv, t, u, v, b);
 }
 
 // Deferred epilogue: normalize and face the winning normal toward the ray,

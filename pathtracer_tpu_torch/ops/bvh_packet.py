@@ -7,10 +7,12 @@ normal normalized and faced toward the ray; t = -1, mat = -1 on a miss.
 Inactive lanes report a miss (the TPU kernel may record stray hits for them,
 which no caller reads).
 
-`packet_walk` launches csrc/packet.cu for CUDA tensors and runs
-`packet_walk_plain`, the same per-ray stackless walk in plain PyTorch, for CPU
-tensors. The binned intersector (ops/binned.py) runs it as its exact fallback;
-`mesh_intersect_packet` is bvh_impl="pallas" and
+`packet_walk` launches csrc/packet.cu for CUDA tensors (a compaction of the
+active lanes, then a persistent walk over them with warp-cooperative leaf
+tests; see the note there) and runs `packet_walk_plain`, the same per-ray
+stackless walk in plain PyTorch, for CPU tensors. The binned intersector
+(ops/binned.py) runs it as its exact fallback; `mesh_intersect_packet` is
+bvh_impl="pallas" and
 `mesh_intersect_packet_sorted` (bvh_pallas.py:330) is bvh_impl="sorted".
 
 `coherence_sorted` runs a walk over coherence-sorted chunks, for this
@@ -28,6 +30,9 @@ from . import kernels
 FLT_MAX = 3.402823466e38
 LANE_CHUNK = 1 << 15   # lanes per block of [lanes, triangles] work
 SORT_CHUNK = 8192      # lanes per coherence-sort chunk (bvh_pallas.py:316)
+# csrc/packet.cu stages node tables of at most SMEM_NODES nodes (48 bytes
+# each, 48 KB) in shared memory
+SMEM_NODES = 1024
 
 
 def tri_table(tris_packed: torch.Tensor) -> torch.Tensor:
@@ -185,14 +190,19 @@ def packet_walk(nodes_f, nodes_i, tris_packed, root: int,
         tris_f32=tris_packed, ray_ox_f32=ox, ray_oy_f32=oy, ray_oz_f32=oz,
         ray_dx_f32=dx, ray_dy_f32=dy, ray_dz_f32=dz, ray_act_i32=act,
         ray_tb_f32=tb)
-    t, nx, ny, nz, mat = kernels.hit_outputs(n, ox.device)
-    if n:
-        p = kernels.ptr
-        kernels.launch("packet", dev, p(nodes_f), p(nodes_i),
-                       min(nodes_f.numel() // 8, nodes_i.numel() // 4),
-                       p(tris_packed), int(root), p(ox), p(oy), p(oz), p(dx),
-                       p(dy), p(dz), p(act), p(tb), p(t), p(nx), p(ny),
-                       p(nz), p(mat), n)
+    if not n:
+        return kernels.hit_outputs(0, dev)
+    # two allocations: the four float outputs; mat, then the kernel's
+    # scratch ([0] the active count, [1] the walk's fetch counter, [2:] the
+    # list)
+    t, nx, ny, nz = torch.empty((4, n), device=dev).unbind(0)
+    ints = torch.empty(2 * n + 2, dtype=torch.int32, device=dev)
+    mat = ints[:n]
+    kernels.launch("packet", dev, *(a.data_ptr() for a in (
+        nodes_f, nodes_i)), min(nodes_f.numel() // 8, nodes_i.numel() // 4),
+        tris_packed.data_ptr(), int(root), *(a.data_ptr() for a in (
+            ox, oy, oz, dx, dy, dz, act, tb, t, nx, ny, nz, mat)),
+        ints.data_ptr() + 4 * n, SMEM_NODES, n)
     return t, nx, ny, nz, mat
 
 

@@ -1,16 +1,18 @@
 """Build, load and launch the hand-written CUDA kernels of csrc/.
 
 The mesh-intersection kernels (csrc/cull.cu, stream.cu, packet.cu, wide.cu,
-brute.cu) and the exclusive scan (csrc/scan.cu) are compiled by nvcc into
-one shared library with a plain C interface, loaded with ctypes. The
-library is built on first use, from the package's sources only, into
-build/torch_kernels/ at the repo root; its file name carries a hash of the
-sources and flags, so a changed source is rebuilt and a stale library is
-never loaded.
+brute.cu) and the exclusive scan (csrc/scan.cu) are compiled by nvcc, one
+process a source, all started together, and linked into one shared library
+with a plain C interface, loaded with ctypes. The library is built on first
+use, from the package's sources only, into build/torch_kernels/ at the repo
+root; its file name carries a hash of the sources and flags, so a changed
+source is rebuilt and a stale library is never loaded.
 
-`LAUNCHES` counts the launches of each kernel: a wrapper adds one where it
+`LAUNCHES` counts the calls of each kernel: a wrapper adds one where it
 launches its kernel, and nowhere else, so a run can show which kernels its
-main path went through.
+main path went through. A call counts once whatever the number of device
+kernels it launches: "packet" is a compaction kernel and the walk over the
+compacted lanes (csrc/packet.cu).
 """
 from __future__ import annotations
 
@@ -33,8 +35,7 @@ HEADERS = ("common.cuh",)
 # -fmad=false and no fast math: each kernel matches its plain PyTorch version
 # bit for bit (see csrc/common.cuh)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"cull": 0, "stream": 0, "packet": 0, "wide_push": 0,
             "wide_mask": 0, "brute": 0, "scan": 0}
@@ -48,8 +49,9 @@ _ARGTYPES = {
     # 5 outputs, n, stream
     "pt_stream": [_I, _P, _I, _P, _I, _I] + [_P] * 8 + [_P] * 5 + [_I, _P],
     # device, nodes_f, nodes_i, n_nodes, tris, root, 8 ray planes,
-    # 5 outputs, n, stream
-    "pt_packet": [_I, _P, _P, _I, _P, _I] + [_P] * 8 + [_P] * 5 + [_I, _P],
+    # 5 outputs, scratch, smem_nodes, n, stream
+    "pt_packet": [_I, _P, _P, _I, _P, _I] + [_P] * 8 + [_P] * 5
+                 + [_P, _I, _I, _P],
     # device, nodes8_f, nodes8_i, n_wide, tris8, n_groups, root, 8 ray
     # planes, cull, 5 outputs, n, stream
     "pt_wide_push": [_I, _P, _P, _I, _P, _I, _P] + [_P] * 8 + [_I]
@@ -59,8 +61,9 @@ _ARGTYPES = {
                     + [_I, _P],
     # device, coeffs, attrs, n_tris, 6 ray planes, 5 outputs, n, stream
     "pt_brute": [_I, _P, _P, _I] + [_P] * 6 + [_P] * 5 + [_I, _P],
-    # device, x, out, scratch, n, is_float, stream
-    "pt_scan": [_I, _P, _P, _P, _I, _I, _P],
+    # device, x, out, scratch, capacity, n, is_float, epoch, stream
+    "pt_scan": [_I, _P, _P, _P, ctypes.c_longlong, _I, _I, ctypes.c_uint,
+                _P],
 }
 
 _lib = None
@@ -88,22 +91,40 @@ def library_path() -> str:
 
 
 def build() -> tuple[str, float, str]:
-    """Compile the library if it is missing. Returns (path, seconds, the
-    compiler's output, which lists each kernel's registers and spills)."""
+    """Compile the library if it is missing: one nvcc a source, all at once,
+    then one link. Returns (path, seconds, the compilers' output, which
+    lists each kernel's registers, shared memory and spills)."""
     path = library_path()
     if os.path.exists(path):
         return path, 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC, s) for s in SOURCES)]
+    tmp = f"{path}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, path)
-    return path, secs, res.stdout + res.stderr
+    objs = [f"{tmp}.{s}.o" for s in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+                               os.path.join(CSRC, s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for s, obj in zip(SOURCES, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(s, p.returncode, out) for s, p, out in zip(SOURCES, procs, logs)
+              if p.returncode != 0]
+    if not failed:
+        res = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                              f"{tmp}.so", *objs], capture_output=True,
+                             text=True)
+        logs.append(res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(("link", res.returncode, res.stderr))
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{s} ({rc}):\n{out}" for s, rc, out in failed))
+    os.replace(f"{tmp}.so", path)
+    return path, time.perf_counter() - t0, "".join(logs)
 
 
 def library() -> ctypes.CDLL:
@@ -126,17 +147,20 @@ def check(name: str, n: int, cols: int = 128, **tensors) -> torch.device:
     plane (name starting with ray_), [1] for a single value (name starting
     with one_) or [rows, cols] with rows > 0 for a table. Returns the
     device."""
-    devices = {t.device for t in tensors.values()}
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(f"{name}: tensors on {sorted(map(str, devices))}, "
-                         "expected one CUDA device")
+    device = None
     for key, t in tensors.items():
+        if device is None:
+            device = t.device
+        if t.device != device or device.type != "cuda":
+            devices = sorted({str(u.device) for u in tensors.values()})
+            raise ValueError(f"{name}: tensors on {devices}, expected one "
+                             "CUDA device")
         want = torch.float32 if key.endswith("f32") else torch.int32
         if t.dtype != want:
             raise TypeError(f"{name}: {key} is {t.dtype}, expected {want}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} is not contiguous")
-        shape = tuple(t.shape)
+        shape = t.shape
         if key.startswith("ray_"):
             ok = shape == (n,)
         elif key.startswith("one_"):
@@ -144,15 +168,23 @@ def check(name: str, n: int, cols: int = 128, **tensors) -> torch.device:
         else:
             ok = len(shape) == 2 and shape[1] == cols and shape[0] > 0
         if not ok:
-            raise ValueError(f"{name}: {key} has shape {shape}")
-    return devices.pop()
+            raise ValueError(f"{name}: {key} has shape {tuple(shape)}")
+    return device
 
 
-def launch(name: str, device: torch.device, *args) -> None:
-    """Call pt_<name> on `device`'s current stream and count the launch;
-    raise on a CUDA error reported right after the launch."""
+def current_stream(device: torch.device) -> int:
+    """The handle of `device`'s current CUDA stream."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(name: str, device: torch.device, *args,
+           stream: int | None = None) -> None:
+    """Call pt_<name> on `stream` (default: `device`'s current stream) and
+    count the launch; raise on a CUDA error reported right after the
+    launch."""
     fn = getattr(library(), "pt_" + name)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    if stream is None:
+        stream = current_stream(device)
     err = fn(device.index, *args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

@@ -6,9 +6,13 @@ semantics, less `use_pallas`: as in every wrapper of the port, a CUDA tensor
 goes through the kernel (csrc/scan.cu) and a CPU tensor through its plain
 PyTorch version.
 
-  - `exclusive_scan`: csrc/scan.cu, reduce-then-scan over 4096-element tiles
-    (see the note there); the plain version is cumsum(x) - x, the JAX
-    package's own jnp path. int32 sums wrap modulo 2^32 on both paths.
+  - `exclusive_scan`: csrc/scan.cu, one launch a call: a single pass over
+    4,096- or 8,192-element tiles whose look-back sums the predecessor
+    tiles' aggregates in a fixed order, so float32 results repeat (see the
+    note there). Its scratch (flags and tile counter) is kept per (device,
+    stream) and is not allocated per call. The plain version is
+    cumsum(x) - x, the JAX package's own jnp path. int32 sums wrap modulo
+    2^32 on both paths.
   - `compaction_indices` / `compact` / `partition_stable`: map to int ->
     exclusive scan -> scatter of a gather permutation; live elements first,
     dead ones kept at the back, both in order.
@@ -30,7 +34,8 @@ import torch
 from . import kernels
 
 SEG = 128  # column count of the segmented sort (the TPU's lane width)
-SCAN_TILE = 4096  # csrc/scan.cu TILE: one scratch total per tile
+SCAN_TILE = 4096  # csrc/scan.cu's smallest tile (its large inputs take 8,192)
+EPOCH_MAX = 2 ** 32 - 1  # epochs run 1 .. EPOCH_MAX (0 marks "never written")
 
 
 def tree_map(fn, tree, *rest):
@@ -58,22 +63,69 @@ def exclusive_scan_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(x, 0, dtype=x.dtype) - x
 
 
+class _Scratch:
+    """One (device, stream)'s scan scratch: int64 word 0 holds the tile
+    counter, words 1.. one flag a tile; `epoch` is the last call's."""
+
+    def __init__(self, tiles: int, device):
+        self.words = torch.zeros(tiles + 1, dtype=torch.int64, device=device)
+        self.epoch = 0
+
+    def next_epoch(self) -> int:
+        """A new epoch, never 0. When the count wraps, the flags are zeroed
+        again (on the current stream, before the launch), so a flag left
+        by an earlier call with the same epoch cannot match."""
+        if self.epoch == EPOCH_MAX:
+            self.words.zero_()
+            self.epoch = 0
+        self.epoch += 1
+        return self.epoch
+
+
+_SCRATCH: dict = {}  # (device index, stream handle) -> _Scratch
+
+
+def scan_scratch(device: torch.device, stream: int, tiles: int) -> _Scratch:
+    """The scratch of `stream` on `device`, made (zeroed) on first use and
+    remade, twice as large, when `tiles` outgrow it. Two streams never
+    share one: calls on one stream run in order, so the tile counter that a
+    launch resets is zero when the next one starts."""
+    key = (device.index, stream)
+    s = _SCRATCH.get(key)
+    if s is None or s.words.numel() - 1 < tiles:
+        old = 0 if s is None else s.words.numel() - 1
+        s = _SCRATCH[key] = _Scratch(max(tiles, 2 * old), device)
+    return s
+
+
+def scan_tiles(n: int) -> int:
+    """Flags the scratch holds for n elements: one a SCAN_TILE, so as many
+    as the tiles of any shape csrc/scan.cu cuts n into."""
+    return -(-n // SCAN_TILE)
+
+
 def scan_kernel(x: torch.Tensor) -> torch.Tensor:
-    """Launch csrc/scan.cu on a contiguous 1-D int32 / float32 CUDA tensor;
-    raises on anything else."""
-    n = x.numel()
-    is_float = x.dtype == torch.float32
-    dev = kernels.check("scan", n, **{
-        "ray_x_f32" if is_float else "ray_x_i32": x})
+    """Launch csrc/scan.cu (one launch) on a contiguous 1-D int32 / float32
+    CUDA tensor of fewer than 2**31 elements; raises on anything else."""
+    if x.dtype not in (torch.int32, torch.float32):
+        raise TypeError(f"scan: {x.dtype}, expected int32 or float32")
+    if x.device.type != "cuda":
+        raise ValueError(f"scan: tensor on {x.device}, expected CUDA")
+    if x.dim() != 1 or not x.is_contiguous():
+        raise ValueError(f"scan: shape {tuple(x.shape)} with strides "
+                         f"{x.stride()}, expected a contiguous 1-D tensor")
+    n = x.shape[0]
     if n >= 2 ** 31:
         raise ValueError(f"scan: {n} elements, at most 2**31 - 1")
     out = torch.empty_like(x)
     if n:
-        scratch = torch.empty((n + SCAN_TILE - 1) // SCAN_TILE,
-                              dtype=x.dtype, device=dev)
-        p = kernels.ptr
-        kernels.launch("scan", dev, p(x), p(out), p(scratch), n,
-                       int(is_float))
+        dev = x.device
+        stream = kernels.current_stream(dev)
+        s = scan_scratch(dev, stream, scan_tiles(n))
+        epoch = s.next_epoch()
+        kernels.launch("scan", dev, x.data_ptr(), out.data_ptr(),
+                       s.words.data_ptr(), s.words.numel() - 1, n,
+                       int(x.dtype == torch.float32), epoch, stream=stream)
     return out
 
 

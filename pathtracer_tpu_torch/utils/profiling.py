@@ -68,6 +68,7 @@ KINDS = (
     ("cull_kernel", "cull kernel"),
     ("stream_kernel", "stream kernel"),
     ("packet_kernel", "packet kernel"),
+    ("scan_kernel", "scan kernel"),
     ("wide_push_kernel", "wide push kernel"),
     ("wide_mask_kernel", "wide mask kernel"),
     ("brute_kernel", "brute kernel"),

@@ -9,6 +9,9 @@ hold each kernel against its plain version on the card (bit for bit: the
 library is built with -fmad=false, see csrc/common.cuh), and skip where
 there is no CUDA device.
 """
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -38,6 +41,70 @@ def _planes(n, seed, device):
     act = (r.uniform(size=n) < 0.7).astype(np.int32)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return [t(c) for c in o], [t(c) for c in d], t(bound), t(act)
+
+
+def write_tie_scene(directory) -> str:
+    """A scene of one mesh made of coincident triangles that carry different
+    materials (MTL m0..m3, ids 1..4): 150 copies of one triangle, which the
+    BVH builder cuts at the median into two leaves of 75 (their centroids
+    are equal), and 40 copies of another, in one leaf. Returns the scene
+    JSON's path. Every ray that hits a group ties on t; the walk keeps the
+    first copy of the group (leaves left first, triangles in order): m0 for
+    the first group, m2 for the second."""
+    with open(os.path.join(directory, "tie.mtl"), "w") as f:
+        for k in range(4):
+            f.write(f"newmtl m{k}\nKd {0.2 + 0.2 * k} 0.5 0.5\n")
+    lines = ["mtllib tie.mtl", "v 0 0 0", "v 1 0 0", "v 0 1 0", "v 5 0 0",
+             "v 6 0 0", "v 5 1 0"]
+    lines += [f"usemtl m{k % 4}\nf 1 2 3" for k in range(150)]
+    lines += [f"usemtl m{(k + 2) % 4}\nf 4 5 6" for k in range(40)]
+    obj = os.path.join(directory, "tie.obj")
+    with open(obj, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    scene = {
+        "Materials": {"white": {"TYPE": "Diffuse", "RGB": [0.9, 0.9, 0.9]}},
+        "Camera": {"RES": [16, 16], "FOVY": 45.0, "ITERATIONS": 1,
+                   "DEPTH": 2, "FILE": "tie", "EYE": [0.0, 0.0, 5.0],
+                   "LOOKAT": [0.0, 0.0, 0.0], "UP": [0.0, 1.0, 0.0]},
+        "Objects": [{"TYPE": "mesh", "FILE": obj, "TRANS": [0.0, 0.0, 0.0],
+                     "ROTAT": [0.0, 0.0, 0.0], "SCALE": [1.0, 1.0, 1.0]}]}
+    path = os.path.join(directory, "tie.json")
+    with open(path, "w") as f:
+        json.dump(scene, f)
+    return path
+
+
+def tie_rays(n: int, seed: int):
+    """(origin [3, n], direction [3, n], group [n]) as float32 / int arrays:
+    rays from either side aimed at points inside the first (group 0) or the
+    second (group 1) triangle of write_tie_scene."""
+    r = np.random.default_rng(seed)
+    group = r.integers(0, 2, n)
+    u, v = r.uniform(0.05, 0.45, size=(2, n))
+    p = np.stack([u + 5.0 * group, v, np.zeros(n)])
+    side = np.where(r.uniform(size=n) < 0.5, -1.0, 1.0)
+    o = p + np.stack([r.normal(size=n) * 0.3, r.normal(size=n) * 0.3,
+                      3.0 * side])
+    return o.astype(np.float32), (p - o).astype(np.float32), group
+
+
+def aimed_planes(scene, n, seed, device):
+    """Rays aimed at random points of the mesh's root box (most want several
+    leaves), a bound finite on half the lanes, all lanes active."""
+    r = np.random.default_rng(seed)
+    root = scene.mesh_roots[0]
+    b = scene.bvh
+    lo = np.array([float(b.min_x[root]), float(b.min_y[root]),
+                   float(b.min_z[root])], np.float32)
+    hi = np.array([float(b.max_x[root]), float(b.max_y[root]),
+                   float(b.max_z[root])], np.float32)
+    target = lo[:, None] + r.uniform(size=(3, n)) * (hi - lo)[:, None]
+    o = (target + r.normal(size=(3, n)) * 4.0).astype(np.float32)
+    d = (target - o).astype(np.float32)
+    bound = np.where(r.uniform(size=n) < 0.5, r.uniform(2, 12, size=n),
+                     FLT_MAX).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return [t(c) for c in o], [t(c) for c in d], t(bound)
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -255,6 +322,78 @@ def test_binned_pipeline_on_the_card_matches_cpu():
         torch.testing.assert_close(x.cpu()[a], y[a], rtol=0, atol=1e-6)
 
 
+def _packet_equal(args):
+    """The packet kernel against its plain version, every output of every
+    lane (inactive lanes' misses too) bit for bit, one launch a call."""
+    before = kernels.LAUNCHES["packet"]
+    got = bvh_packet.packet_walk(*args)
+    assert kernels.LAUNCHES["packet"] == before + 1
+    for a, b in zip(got, bvh_packet.packet_walk_plain(*args)):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["scattered", "clustered", "all"])
+def test_packet_kernel_on_sparse_pools(layout):
+    """1 active lane in 75, as on the binned fallback, scattered over the
+    pool or in runs of 300 (a few rays a warp); and every lane active (32
+    rays a warp)."""
+    _need_cuda()
+    scene, _ = load_scene(scene_path("teapot"), "cuda")
+    n = 75 * 4096
+    o, d, bound = aimed_planes(scene, n, 5, "cuda")
+    r = np.random.default_rng(6)
+    if layout == "scattered":
+        act = np.zeros(n, np.int32)
+        act[r.choice(n, n // 75, replace=False)] = 1
+    elif layout == "clustered":
+        act = (np.arange(n) % (75 * 300) < 300).astype(np.int32)
+    else:
+        act = np.ones(n, np.int32)
+    act = torch.from_numpy(act).cuda()
+    got = _packet_equal((scene.bvh_packed_f, scene.bvh_packed_i,
+                         scene.tris_packed, scene.mesh_roots[0], *o, *d, act,
+                         bound))
+    assert int((got[0] > 0).sum()) > 500
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["teapot", "animal"])
+def test_packet_kernel_reads_large_node_tables_through_the_cache(
+        name, monkeypatch):
+    """Node tables over SMEM_NODES nodes are read through L1/L2, not staged:
+    with SMEM_NODES = 0 every table is too large for shared memory."""
+    _need_cuda()
+    monkeypatch.setattr(bvh_packet, "SMEM_NODES", 0)
+    scene, _ = load_scene(scene_path(name), "cuda")
+    o, d, bound = aimed_planes(scene, 65536, 7, "cuda")
+    act = (torch.arange(65536, device="cuda") % 3 > 0).to(torch.int32)
+    got = _packet_equal((scene.bvh_packed_f, scene.bvh_packed_i,
+                         scene.tris_packed, scene.mesh_roots[0], *o, *d, act,
+                         bound))
+    assert int((got[0] > 0).sum()) > 1000
+
+
+@pytest.mark.cuda
+def test_packet_kernel_keeps_the_tie_rule(tmp_path):
+    """Coincident triangles in one leaf and across two: the first copy of
+    each group wins, as in the plain walk."""
+    _need_cuda()
+    scene, _ = load_scene(write_tie_scene(str(tmp_path)), "cuda")
+    o, d, group = tie_rays(4096, 8)
+    c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    n = o.shape[1]
+    got = _packet_equal((scene.bvh_packed_f, scene.bvh_packed_i,
+                         scene.tris_packed, scene.mesh_roots[0],
+                         *map(c, o), *map(c, d),
+                         torch.ones(n, dtype=torch.int32, device="cuda"),
+                         torch.full((n,), FLT_MAX, device="cuda")))
+    mat = got[4].cpu().numpy()
+    assert (mat[group == 0] == 1).all() and (mat[group == 1] == 3).all()
+
+
 def test_cpu_scan_takes_the_plain_version_without_building(monkeypatch):
     def no_build():
         raise AssertionError("the CPU path built the kernel library")
@@ -271,7 +410,7 @@ def test_cpu_scan_takes_the_plain_version_without_building(monkeypatch):
 
 # the scan's float32 tolerance: two orders of summing n float32 values differ
 # by at most about (the longer chain of dependent adds) * 2**-24 * sum |x|;
-# 1e-5 * sum |x| allows chains of some 170 adds (the kernel's is under 50)
+# 1e-5 * sum |x| allows chains of some 170 adds (the kernel's is under 60)
 SCAN_F32_RTOL = 1e-5
 
 
@@ -302,6 +441,49 @@ def test_scan_kernel_float32_within_tolerance_and_repeatable(n):
     assert err <= SCAN_F32_RTOL * float(x.abs().sum()), err
     assert float(got[0]) == 0.0
     assert torch.equal(got, scan.exclusive_scan(x))     # the same bits
+
+
+@pytest.mark.cuda
+def test_scan_kernel_back_to_back_on_one_stream():
+    """n shrinking and growing between calls on one stream: each call's
+    epoch and the tile counter's reset keep every result exact."""
+    _need_cuda()
+    r = np.random.default_rng(9)
+    for n in (1, 4097, 2 ** 24 + 3, 31, 640000, 4095):
+        x = torch.from_numpy(r.integers(-2 ** 31, 2 ** 31 - 1, n).astype(
+            np.int32)).cuda()
+        before = kernels.LAUNCHES["scan"]
+        got = scan.exclusive_scan(x)
+        assert kernels.LAUNCHES["scan"] == before + 1
+        assert torch.equal(got, scan.exclusive_scan_plain(x)), n
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4097, 640001, 2 ** 24 + 4])
+def test_scan_kernel_on_a_slice(n):
+    """x[1:] is 4 bytes past a 16-byte boundary: the kernel's scalar
+    loads, bit for bit."""
+    _need_cuda()
+    base = torch.from_numpy(np.random.default_rng(n).integers(
+        -2 ** 31, 2 ** 31 - 1, n).astype(np.int32)).cuda()
+    x = base[1:]
+    assert x.data_ptr() % 16 == 4
+    assert torch.equal(scan.exclusive_scan(x), scan.exclusive_scan_plain(x))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_scan_kernel_float32_same_bits_three_calls_big():
+    _need_cuda()
+    n = 2 ** 24 + 3
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal(
+        n).astype(np.float32)).cuda()
+    got = scan.exclusive_scan(x)
+    err = float((got - scan.exclusive_scan_plain(x)).abs().max())
+    assert err <= SCAN_F32_RTOL * float(x.abs().sum()), err
+    for _ in range(2):
+        assert torch.equal(got, scan.exclusive_scan(x))
 
 
 @pytest.mark.cuda

@@ -23,6 +23,13 @@ torch.set_num_threads(2)
      "brute kernel"),
     ("_ZN12_GLOBAL__N_113stream_kernelEPKiiPKfiiS3_", "stream kernel"),
     ("_ZN12_GLOBAL__N_113packet_kernelEPKfPKiiS1_i", "packet kernel"),
+    ("_ZN12_GLOBAL__N_118packet_kernel_walkILb1EEvPKfPKiiS3_i",
+     "packet kernel"),
+    ("_ZN12_GLOBAL__N_121packet_kernel_compactEPKiPKfS3_S3_S3_Pf",
+     "packet kernel"),
+    ("_ZN12_GLOBAL__N_111scan_kernelIjLi256ELi16ELb1EEvPKT_PS1_xiPyPjj",
+     "scan kernel"),
+    ("void at_cuda_detail::cub::DeviceScanKernel<>", "elementwise/other"),
     ("Memcpy DtoH (Device -> Pageable)", "memcpy/memset"),
     ("void at_cuda_detail::cub::DeviceRadixSortOnesweepKernel<>", "sorts"),
     ("void at::native::_scatter_gather_elementwise_kernel<128, 4>",

@@ -159,3 +159,81 @@ def test_gather_tree_keeps_the_structure():
     assert out["b"][1][0].tolist() == [4, 3, 2, 1]
     with pytest.raises(TypeError):
         scan.gather_tree({"a": 1}, torch.tensor([0]))
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it is on the card, to drive the scan
+    wrapper's host side with the launch mocked."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+@pytest.fixture
+def mocked_launch(monkeypatch):
+    """scan_kernel's launches, recorded instead of made: (stream, scratch
+    capacity, n, epoch) each; the current stream is `stream[0]`."""
+    calls, stream = [], [11]
+    monkeypatch.setattr(scan, "_SCRATCH", {})
+    monkeypatch.setattr(kernels, "current_stream", lambda dev: stream[0])
+
+    def launch(name, dev, x, out, words, cap, n, is_float, epoch, *,
+               stream):
+        assert name == "scan" and dev == torch.device("cuda", 0)
+        calls.append((stream, cap, n, epoch))
+
+    class HostScratch(scan._Scratch):     # its words in host memory
+        def __init__(self, tiles, device):
+            super().__init__(tiles, "cpu")
+
+    monkeypatch.setattr(kernels, "launch", launch)
+    monkeypatch.setattr(scan, "_Scratch", HostScratch)
+    return calls, stream
+
+
+def test_scan_wrapper_epochs_skip_zero_and_wrap(mocked_launch):
+    calls, _ = mocked_launch
+    x = torch.zeros(100, dtype=torch.int32).as_subclass(_OnCard)
+    for _ in range(3):
+        scan.scan_kernel(x)
+    assert [c[3] for c in calls] == [1, 2, 3]
+    s = scan._SCRATCH[(0, 11)]
+    s.epoch = scan.EPOCH_MAX - 1
+    s.words.fill_(7)                    # flags of earlier calls
+    scan.scan_kernel(x)
+    assert calls[-1][3] == scan.EPOCH_MAX and bool((s.words == 7).all())
+    scan.scan_kernel(x)                 # wraps: flags zeroed, epoch 1
+    assert calls[-1][3] == 1 and not bool(s.words.any())
+    scan.scan_kernel(x)
+    assert calls[-1][3] == 2
+
+
+def test_scan_wrapper_keeps_one_scratch_per_stream(mocked_launch):
+    calls, stream = mocked_launch
+    small = torch.zeros(5000, dtype=torch.int32).as_subclass(_OnCard)
+    big = torch.zeros(40000, dtype=torch.float32).as_subclass(_OnCard)
+    scan.scan_kernel(small)
+    first = scan._SCRATCH[(0, 11)]
+    scan.scan_kernel(small)
+    assert scan._SCRATCH[(0, 11)] is first and calls[-1][3] == 2
+    stream[0] = 12                      # another stream: its own scratch
+    scan.scan_kernel(small)
+    assert scan._SCRATCH[(0, 12)] is not first and calls[-1][3] == 1
+    stream[0] = 11                      # 10 tiles outgrow 2: remade
+    scan.scan_kernel(big)
+    grown = scan._SCRATCH[(0, 11)]
+    assert grown is not first and grown.words.numel() - 1 == 10
+    assert calls[-1] == (11, 10, 40000, 1)
+    scan.scan_kernel(small)             # kept while it is large enough
+    assert scan._SCRATCH[(0, 11)] is grown and calls[-1][3] == 2
+    assert [c[1] for c in calls] == [2, 2, 2, 10, 10]
+
+
+@pytest.mark.parametrize("n,tiles", [(1, 1), (4096, 1), (4097, 2),
+                                     (2 ** 22, 1024), (2 ** 22 + 1, 1025),
+                                     (2 ** 24 + 3, 4097)])
+def test_scan_tiles_cover_the_kernels_tiles(n, tiles):
+    """One flag a 4,096-element tile: enough for the kernel's 4,096- and
+    8,192-element tiles alike."""
+    assert scan.scan_tiles(n) == tiles
