@@ -17,6 +17,8 @@ constexpr float FLT_MAX_F = 3.402823466e38f;
 constexpr int TRIS_PER_ROW = 6;           // 6 tris x 20 fields per 128-lane row
 constexpr int TRI_STRIDE = 20;
 constexpr int ROW = 128;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned NO_HIT = 0xffffffffu;  // above every positive float's bits
 
 // jnp.maximum / jnp.minimum / torch.maximum semantics: a NaN operand yields
 // NaN (fmaxf / fminf would drop it and change which slabs are entered).
@@ -50,22 +52,45 @@ __device__ __forceinline__ void slab(const float* lo, const float* hi,
                nan_max(tnz, tfz));
 }
 
+// The slab test with fewer instructions, for a sweep that only compares the
+// parameters: false when a slab parameter is NaN (slab's t0 and t1 would be
+// NaN and fail every comparison); otherwise t0 and t1 equal slab's in value.
+// Plain fminf / fmaxf differ from nan_min / nan_max only on NaN and in the
+// sign of a zero, which no comparison sees; a kernel that outputs t0
+// recomputes it with slab.
+__device__ __forceinline__ bool slab_fast(float lx, float ly, float lz,
+                                          float hx, float hy, float hz,
+                                          float ox, float oy, float oz,
+                                          float ix, float iy, float iz,
+                                          float& t0, float& t1) {
+  const float tnx = (lx - ox) * ix;
+  const float tfx = (hx - ox) * ix;
+  const float tny = (ly - oy) * iy;
+  const float tfy = (hy - oy) * iy;
+  const float tnz = (lz - oz) * iz;
+  const float tfz = (hz - oz) * iz;
+  const bool nan = tnx != tnx || tfx != tfx || tny != tny || tfy != tfy ||
+                   tnz != tnz || tfz != tfz;
+  t0 = fmaxf(fmaxf(fminf(tnx, tfx), fminf(tny, tfy)), fminf(tnz, tfz));
+  t1 = fminf(fminf(fmaxf(tnx, tfx), fmaxf(tny, tfy)), fmaxf(tnz, tfz));
+  return !nan;
+}
+
 struct Best {
   float t;       // closest accepted t so far (starts at the lane's bound)
   float nx, ny, nz;  // raw interpolated normal of the winner
   int mat;
 };
 
-// Moller-Trumbore against one packed triangle record tv[0..19]
-// (v0, e1, e2, n0, n1, n2, material_id): true on a valid hit in front of the
-// origin, with its t and barycentrics u, v (a NaN t fails t >= 1e-6).
-__device__ __forceinline__ bool tri_hit(const float* __restrict__ tv,
+// Moller-Trumbore against the triangle v0 + u e1 + v e2 (the first nine
+// fields of a packed record): true on a valid hit in front of the origin,
+// with its t and barycentrics u, v (a NaN t fails t >= 1e-6).
+__device__ __forceinline__ bool tri_hit(float v0x, float v0y, float v0z,
+                                        float e1x, float e1y, float e1z,
+                                        float e2x, float e2y, float e2z,
                                         float ox, float oy, float oz,
                                         float dx, float dy, float dz,
                                         float& t, float& u, float& v) {
-  const float v0x = tv[0], v0y = tv[1], v0z = tv[2];
-  const float e1x = tv[3], e1y = tv[4], e1z = tv[5];
-  const float e2x = tv[6], e2y = tv[7], e2z = tv[8];
   const float hx = dy * e2z - dz * e2y;
   const float hy = dz * e2x - dx * e2z;
   const float hz = dx * e2y - dy * e2x;
@@ -82,6 +107,16 @@ __device__ __forceinline__ bool tri_hit(const float* __restrict__ tv,
   const bool valid = !parallel && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
                      (u + v) <= 1.0f && t >= 1e-6f;
   return valid && t > 0.0f;
+}
+
+// The same against one packed triangle record tv[0..19] (v0, e1, e2, n0,
+// n1, n2, material_id).
+__device__ __forceinline__ bool tri_hit(const float* __restrict__ tv,
+                                        float ox, float oy, float oz,
+                                        float dx, float dy, float dz,
+                                        float& t, float& u, float& v) {
+  return tri_hit(tv[0], tv[1], tv[2], tv[3], tv[4], tv[5], tv[6], tv[7],
+                 tv[8], ox, oy, oz, dx, dy, dz, t, u, v);
 }
 
 // Make the hit (t, u, v) on record tv the lane's best: t, the raw
@@ -106,6 +141,30 @@ __device__ __forceinline__ void tri_test(const float* __restrict__ tv,
     take_hit(tv, t, u, v, b);
 }
 
+// The winner of one ray's triangle tests spread over the warp: lane l holds
+// its first hit of least t (ck = -1: none) among the triangles k = l,
+// l + 32, ... that it tested in increasing order. The winner is the arg-min
+// of (t, k) over the warp, by two warp reductions (redux.sync): exactly the
+// triangle that the serial strict-`<` loop over k keeps (a hit's t is
+// positive, so its bits order as the floats do, and NO_HIT is above them
+// all). Returns false on every lane when no lane has a hit; else every lane
+// gets its t, k and barycentrics (from lane k % 32, which tested k). Call it
+// on all 32 lanes.
+__device__ __forceinline__ bool warp_winner(float ct, int ck, float cu,
+                                            float cv, float& t_win,
+                                            int& k_win, float& u_win,
+                                            float& v_win) {
+  const unsigned t_bits = ck >= 0 ? __float_as_uint(ct) : NO_HIT;
+  const unsigned t_min = __reduce_min_sync(FULL, t_bits);
+  if (t_min == NO_HIT) return false;
+  k_win = static_cast<int>(__reduce_min_sync(
+      FULL, t_bits == t_min ? static_cast<unsigned>(ck) : NO_HIT));
+  t_win = __uint_as_float(t_min);
+  u_win = __shfl_sync(FULL, cu, k_win % 32);
+  v_win = __shfl_sync(FULL, cv, k_win % 32);
+  return true;
+}
+
 // Deferred epilogue: normalize and face the winning normal toward the ray,
 // and report a miss when nothing beat the incoming bound.
 __device__ __forceinline__ void store_hit(const Best& b, float bound,
@@ -123,6 +182,52 @@ __device__ __forceinline__ void store_hit(const Best& b, float bound,
   ny_out[i] = b.ny * fl;
   nz_out[i] = b.nz * fl;
   mat_out[i] = missed ? -1 : b.mat;
+}
+
+// store_hit of a lane that tested nothing (Best{bound, 0, 0, 0, -1}), which
+// needs no direction: the zero normal's dot product is never positive, so
+// its facing factor is positive and finite and the normal stays +0.
+__device__ __forceinline__ void store_miss(float bound, int i, float* t_out,
+                                           float* nx_out, float* ny_out,
+                                           float* nz_out, int* mat_out) {
+  t_out[i] = bound >= bound ? -1.0f : bound;  // a NaN bound is not missed
+  nx_out[i] = 0.0f;
+  ny_out[i] = 0.0f;
+  nz_out[i] = 0.0f;
+  mat_out[i] = -1;
+}
+
+// Blocks of `kernel` that the card holds at once (SMs x blocks an SM holds
+// at `threads` threads and `smem` bytes of shared memory), the grid of a
+// kernel whose blocks loop over the work. Cached per (kernel, device,
+// shared-memory size): a table's size changes only with the scene.
+inline cudaError_t resident_blocks(const void* kernel, int device,
+                                   int threads, size_t smem, int& blocks) {
+  struct Fit {
+    const void* kernel = nullptr;
+    int device = -1, blocks = 0;
+    size_t smem = 0;
+  };
+  constexpr int SLOTS = 8;
+  static thread_local Fit fits[SLOTS];
+  static thread_local int next = 0;
+  for (const Fit& f : fits) {
+    if (f.kernel == kernel && f.device == device && f.smem == smem) {
+      blocks = f.blocks;
+      return cudaSuccess;
+    }
+  }
+  int sms = 0, per_sm = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return err;
+  blocks = sms * (per_sm > 0 ? per_sm : 1);
+  fits[next] = Fit{kernel, device, blocks, smem};
+  next = (next + 1) % SLOTS;
+  return cudaSuccess;
 }
 
 }  // namespace pt

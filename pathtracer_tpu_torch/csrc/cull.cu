@@ -6,24 +6,46 @@
 // after (pt0, pid); (TREELET_NONE, FLT_MAX) when there is none or the lane is
 // not live.
 //
-// Design. One thread per ray; the lane's result does not depend on its
-// neighbours, so the TPU kernel's block-wide gates (`live_any`, the super-row
-// `sum(want_s) > 0`) become per-thread branches: a dead lane skips the sweep,
-// and a super row whose union box the ray does not want skips its 16
-// treelets. Gates only skip work, so (id, t0) per lane is unchanged (a
-// treelet's slab interval lies inside its super box's in float arithmetic
-// too, since (b - o) * inv is monotone in b).
+// What bounds it on an H100: the slab tests, about 25 FP32 operations (some
+// 45 instructions) per (ray, treelet) and per (ray, super row); the tables
+// are small (teapot: 89 treelets in 6 rows of 16, 3.3 KB with the super
+// rows), and the bytes are the ten ray planes of the live lanes (40 bytes a
+// ray in, 8 out on every lane). On the main path (teapot, binned) a call
+// gets 641,024 pool lanes of which ~100,000 are live (pass 1), sorted to the
+// head rows of every column, so the live work is ~16% of the pool; its
+// bound is 0.0034 ms, by bytes. The design this one replaces took 0.0859 ms
+// of device time there: one thread per pool lane, 2,504 blocks that each
+// staged the tables before most of them found no live lane, a slab test of
+// ten NaN-propagating min / max, and a super-row gate decided per thread.
+// This one takes 0.0335-0.0341 ms against the old design's 0.0860-0.0870
+// in the same calls (animal pass 1: 0.0939-0.0979 against 0.2280-0.2335),
+// torch.profiler device time, H100 80GB HBM3 at 700.00 W: the live lanes'
+// slab tests now set its time; chunks without a live lane cost ~0.004 ms
+// in all.
 //
-// What bounds it on an H100: the slab tests, about 30 FP32 operations per
-// (ray, treelet); the tables are small (teapot: 89 treelets, 6 super rows, a
-// few KB), so every block stages them in shared memory once and the sweep
-// reads no device memory beyond the ten ray planes (40 bytes a ray in, 8
-// out). Staging beat reading the same tables through L1/L2 on every
-// bounce-1 cull of the mesh scenes (teapot: 3% with 100k live lanes of 641k,
-// 15% with 30k; H100 80GB HBM3 at 700 W). Tables larger than SMEM_MAX_ROWS
-// rows do not fit and are read through the cache.
-#include <cstdint>
-
+// The design:
+//   1. A grid of the blocks the card holds at once; each block loops over
+//      chunks of the pool, a warp over 16 consecutive lanes, so the loads and
+//      stores are coalesced. A warp whose lanes are all dead writes
+//      (NONE, FLT_MAX) and moves on. A block stages the tables in shared
+//      memory once, at its first chunk with a live lane (__syncthreads_or),
+//      so blocks that meet only dead chunks never stage. Tables over
+//      SMEM_MAX_ROWS rows are read through L1/L2 under the same design.
+//   2. The sweep: two lanes a ray (SPLIT), each testing every other treelet
+//      of a row, then the least (t0, id) of the pair by one shuffle; each
+//      treelet record is two 16-byte shared loads, and the box test is
+//      common.cuh slab_fast (NaN tested once, then plain fminf / fmaxf). The
+//      winner's t0 is recomputed with common.cuh slab, so its bits, zero
+//      sign included, are the plain version's. Two lanes a ray halve the
+//      rows a warp sweeps for rays that do not want them; one (0.0387 ms)
+//      and four (0.0391) were slower on the teapot's pass 1 in the same
+//      call, and so was reading four chunks' liveness at once.
+//   3. The super-row gate is warp-uniform: a warp runs a row's tests once
+//      when any of its lanes enters the row's union box (__any_sync). A
+//      lane that does not enter it finds no want in the row, since a
+//      treelet's slab interval lies inside its super box's, in float
+//      arithmetic too ((b - o) * inv is monotone in b): the gate only skips
+//      work, and (id, t0) per lane is the plain version's.
 #include "common.cuh"
 
 namespace {
@@ -31,6 +53,23 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int TREELETS_PER_FROW = 16;
 constexpr int SMEM_MAX_ROWS = 80;  // 80 * (512 + 32) bytes < 48 KB
+// lanes that share a ray: each tests every SPLIT-th treelet of a row
+constexpr int SPLIT = 2;
+constexpr int RAYS = 32 / SPLIT;         // rays a warp takes at a time
+constexpr int CHUNK = THREADS / SPLIT;   // pool lanes a block takes at a time
+
+// The six box fields (lo xyz, hi xyz) of an 8-float record: two 16-byte
+// loads from shared memory, or six cached loads from device memory.
+template <bool kSmem>
+__device__ __forceinline__ void box(const float* rec, float (&b)[6]) {
+  if (kSmem) {
+    const float4 p = reinterpret_cast<const float4*>(rec)[0];
+    const float4 q = reinterpret_cast<const float4*>(rec)[1];
+    b[0] = p.x; b[1] = p.y; b[2] = p.z; b[3] = p.w; b[4] = q.x; b[5] = q.y;
+  } else {
+    for (int c = 0; c < 6; ++c) b[c] = __ldg(rec + c);
+  }
+}
 
 template <bool kSmem>
 __global__ void __launch_bounds__(THREADS)
@@ -42,57 +81,123 @@ cull_kernel(const float* __restrict__ tre_f, const float* __restrict__ sup,
             const float* __restrict__ pt0, const int* __restrict__ pid,
             const int* __restrict__ live, int* __restrict__ out_id,
             float* __restrict__ out_t0, int n) {
-  extern __shared__ float smem[];
-  const float* tf = tre_f;  // record k of row r at tf[r * 128 + k * 8]
-  const float* sf = sup;    // row r's union box at sf[r * sstride]
-  int sstride = pt::ROW;
-  if (kSmem) {
-    float* s_tf = smem;
-    float* s_sf = smem + n_rows * pt::ROW;
-    for (int k = threadIdx.x; k < n_rows * pt::ROW; k += blockDim.x)
-      s_tf[k] = tre_f[k];
-    for (int k = threadIdx.x; k < n_rows * 8; k += blockDim.x)
-      s_sf[k] = sup[(k / 8) * pt::ROW + (k % 8)];
-    __syncthreads();
-    tf = s_tf;
-    sf = s_sf;
-    sstride = 8;
-  }
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-
-  float best_t0 = pt::FLT_MAX_F;
-  int best_id = pt::TREELET_NONE;
-  if (live[i] > 0) {
-    const float o_x = ox[i], o_y = oy[i], o_z = oz[i];
-    const float ix = 1.0f / dx[i], iy = 1.0f / dy[i], iz = 1.0f / dz[i];
-    const float b = bound[i];
-    const float p_t0 = pt0[i];
-    const int p_id = pid[i];
-    for (int r = 0; r < n_rows; ++r) {
-      const float* s = sf + r * sstride;
-      float s0, s1;
-      pt::slab(s, s + 3, o_x, o_y, o_z, ix, iy, iz, s0, s1);
-      if (!(s0 <= s1 && s1 > 0.0f && s0 < b)) continue;
-      const float* row = tf + r * pt::ROW;
-      for (int k = 0; k < TREELETS_PER_FROW; ++k) {
-        const float* box = row + 8 * k;
-        const int tid = r * TREELETS_PER_FROW + k;
-        float t0, t1;
-        pt::slab(box, box + 3, o_x, o_y, o_z, ix, iy, iz, t0, t1);
-        const bool want = t0 <= t1 && t1 > 0.0f && t0 < b;
-        const bool after = t0 > p_t0 || (t0 == p_t0 && tid > p_id);
-        const bool closer =
-            t0 < best_t0 || (t0 == best_t0 && tid < best_id);
-        if (want && after && closer) {
-          best_t0 = t0;
-          best_id = tid;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  // record k of row r at tf[r * 128 + k * 8]; row r's union box at
+  // sf[r * sstride]
+  const float* tf = kSmem ? smem : tre_f;
+  const float* sf = kSmem ? smem + n_rows * pt::ROW : sup;
+  const int sstride = kSmem ? 8 : pt::ROW;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane % SPLIT;  // this lane's treelets: k = sub (mod SPLIT)
+  const int slot = (threadIdx.x / 32) * RAYS + lane / SPLIT;
+  bool staged = false;
+  for (long long base = static_cast<long long>(blockIdx.x) * CHUNK;
+       base < n; base += static_cast<long long>(gridDim.x) * CHUNK) {
+    const long long i = base + slot;
+    const bool in = i < n;
+    const bool write = in && sub == 0;
+    const bool is_live = in && live[i] > 0;
+    if (kSmem && !staged) {
+      // block-uniform: stage at the first chunk with a live lane
+      if (!__syncthreads_or(is_live)) {
+        if (write) {
+          out_id[i] = pt::TREELET_NONE;
+          out_t0[i] = pt::FLT_MAX_F;
+        }
+        continue;
+      }
+      for (int k = threadIdx.x; k < n_rows * pt::ROW; k += THREADS)
+        smem[k] = tre_f[k];
+      for (int k = threadIdx.x; k < n_rows * 8; k += THREADS)
+        smem[n_rows * pt::ROW + k] = sup[(k / 8) * pt::ROW + (k % 8)];
+      __syncthreads();
+      staged = true;
+    }
+    int best_id = pt::TREELET_NONE;
+    float best_t0 = pt::FLT_MAX_F;
+    if (__any_sync(pt::FULL, is_live)) {
+      const long long j = in ? i : 0;
+      const float o_x = ox[j], o_y = oy[j], o_z = oz[j];
+      const float ix = 1.0f / dx[j], iy = 1.0f / dy[j], iz = 1.0f / dz[j];
+      // a lane that is not live wants nothing: no t0 is below -inf
+      const float b = is_live ? bound[j] : __int_as_float(0xff800000);
+      const float p_t0 = pt0[j];
+      const int p_id = pid[j];
+      for (int r = 0; r < n_rows; ++r) {
+        float s[6], s0, s1;
+        box<kSmem>(sf + r * sstride, s);
+        const bool want_s =
+            pt::slab_fast(s[0], s[1], s[2], s[3], s[4], s[5], o_x, o_y, o_z,
+                          ix, iy, iz, s0, s1) &&
+            s0 <= s1 && s1 > 0.0f && s0 < b;
+        if (!__any_sync(pt::FULL, want_s)) continue;
+        const float* row = tf + r * pt::ROW;
+#pragma unroll
+        for (int q = 0; q < TREELETS_PER_FROW / SPLIT; ++q) {
+          const int k = q * SPLIT + sub;
+          float e[6], t0, t1;
+          box<kSmem>(row + 8 * k, e);
+          const int tid = r * TREELETS_PER_FROW + k;
+          const bool want =
+              pt::slab_fast(e[0], e[1], e[2], e[3], e[4], e[5], o_x, o_y,
+                            o_z, ix, iy, iz, t0, t1) &&
+              t0 <= t1 && t1 > 0.0f && t0 < b;
+          const bool after = t0 > p_t0 || (t0 == p_t0 && tid > p_id);
+          const bool closer =
+              t0 < best_t0 || (t0 == best_t0 && tid < best_id);
+          if (want && after && closer) {
+            best_t0 = t0;
+            best_id = tid;
+          }
         }
       }
+      // the least (t0, id) of the ray's SPLIT lanes (-0 == +0 here: the
+      // winner's t0 is recomputed below)
+#pragma unroll
+      for (int off = 1; off < SPLIT; off *= 2) {
+        const float o_t0 = __shfl_xor_sync(pt::FULL, best_t0, off);
+        const int o_id = __shfl_xor_sync(pt::FULL, best_id, off);
+        if (o_t0 < best_t0 || (o_t0 == best_t0 && o_id < best_id)) {
+          best_t0 = o_t0;
+          best_id = o_id;
+        }
+      }
+      if (write && best_id != pt::TREELET_NONE) {
+        // the output t0 from the plain version's slab (its zero sign)
+        float e[6], t1;
+        box<kSmem>(tf + (best_id / TREELETS_PER_FROW) * pt::ROW +
+                       8 * (best_id % TREELETS_PER_FROW), e);
+        pt::slab(e, e + 3, o_x, o_y, o_z, ix, iy, iz, best_t0, t1);
+      }
+    }
+    if (write) {
+      out_id[i] = best_id;
+      out_t0[i] = best_t0;
     }
   }
-  out_id[i] = best_id;
-  out_t0[i] = best_t0;
+}
+
+template <bool kSmem>
+cudaError_t launch(int device, cudaStream_t s, const float* tre_f,
+                   const float* sup, int n_rows, const float* const* planes,
+                   const int* pid, const int* live, int* out_id,
+                   float* out_t0, int n) {
+  const size_t smem =
+      kSmem ? static_cast<size_t>(n_rows) * (pt::ROW + 8) * sizeof(float)
+            : 0;
+  int resident = 0;
+  const cudaError_t err = pt::resident_blocks(
+      reinterpret_cast<const void*>(cull_kernel<kSmem>), device, THREADS,
+      smem, resident);
+  if (err != cudaSuccess) return err;
+  const long long need = (static_cast<long long>(n) + CHUNK - 1) / CHUNK;
+  const int blocks = static_cast<int>(need < resident ? need : resident);
+  cull_kernel<kSmem><<<blocks, THREADS, smem, s>>>(
+      tre_f, sup, n_rows, planes[0], planes[1], planes[2], planes[3],
+      planes[4], planes[5], planes[6], planes[7], pid, live, out_id, out_t0,
+      n);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -108,22 +213,19 @@ extern "C" int pt_cull(int device, const void* tre_f, const void* sup,
   // the library has its own CUDA runtime: select the tensors' device
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const int blocks = (n + THREADS - 1) / THREADS;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  auto k = [](const void* p) { return static_cast<const int*>(p); };
-  if (n_rows <= SMEM_MAX_ROWS) {
-    const size_t smem = static_cast<size_t>(n_rows) * (pt::ROW + 8) *
-                        sizeof(float);
-    cull_kernel<true><<<blocks, THREADS, smem, s>>>(
-        f(tre_f), f(sup), n_rows, f(ox), f(oy), f(oz), f(dx), f(dy), f(dz),
-        f(bound), f(pt0), k(pid), k(live), static_cast<int*>(out_id),
-        static_cast<float*>(out_t0), n);
-  } else {
-    cull_kernel<false><<<blocks, THREADS, 0, s>>>(
-        f(tre_f), f(sup), n_rows, f(ox), f(oy), f(oz), f(dx), f(dy), f(dz),
-        f(bound), f(pt0), k(pid), k(live), static_cast<int*>(out_id),
-        static_cast<float*>(out_t0), n);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const float* planes[8] = {f(ox), f(oy), f(oz), f(dx),
+                            f(dy), f(dz), f(bound), f(pt0)};
+  const int* ipid = static_cast<const int*>(pid);
+  const int* ilive = static_cast<const int*>(live);
+  int* oid = static_cast<int*>(out_id);
+  float* ot0 = static_cast<float*>(out_t0);
+  const cudaError_t err =
+      n_rows <= SMEM_MAX_ROWS
+          ? launch<true>(device, s, f(tre_f), f(sup), n_rows, planes, ipid,
+                         ilive, oid, ot0, n)
+          : launch<false>(device, s, f(tre_f), f(sup), n_rows, planes, ipid,
+                          ilive, oid, ot0, n);
+  return static_cast<int>(err);
 }

@@ -72,8 +72,7 @@
 namespace {
 
 constexpr int THREADS = 128;
-constexpr unsigned FULL = 0xffffffffu;
-constexpr unsigned NO_HIT = 0xffffffffu;  // above every positive float's bits
+using pt::FULL;
 
 // One lane's ray and best hit.
 struct Lane {
@@ -90,25 +89,13 @@ __device__ __forceinline__ const float* tri_record(const float* tris,
 
 // The walk's box test: does the ray enter box (lo, hi) closer than `best`?
 // The answer of common.cuh slab's (t0 <= t1 && t1 > 0 && t0 < best) with
-// fewer instructions on the walk's critical path: a NaN slab parameter
-// makes slab's t0 or t1 NaN and the answer false, so NaNs are tested once
-// and the rest is plain fminf / fmaxf (which differ from nan_min / nan_max
-// only on NaN and in the sign of a zero, which no comparison here sees).
+// fewer instructions on the walk's critical path (common.cuh slab_fast).
 __device__ __forceinline__ bool enters(const float* lo, const float* hi,
                                        const Lane& r) {
-  const float tnx = (lo[0] - r.ox) * r.ix;
-  const float tfx = (hi[0] - r.ox) * r.ix;
-  const float tny = (lo[1] - r.oy) * r.iy;
-  const float tfy = (hi[1] - r.oy) * r.iy;
-  const float tnz = (lo[2] - r.oz) * r.iz;
-  const float tfz = (hi[2] - r.oz) * r.iz;
-  const bool nan = tnx != tnx || tfx != tfx || tny != tny || tfy != tfy ||
-                   tnz != tnz || tfz != tfz;
-  const float t0 = fmaxf(fmaxf(fminf(tnx, tfx), fminf(tny, tfy)),
-                         fminf(tnz, tfz));
-  const float t1 = fminf(fminf(fmaxf(tnx, tfx), fmaxf(tny, tfy)),
-                         fmaxf(tnz, tfz));
-  return !nan && t0 <= t1 && t1 > 0.0f && t0 < r.best.t;
+  float t0, t1;
+  return pt::slab_fast(lo[0], lo[1], lo[2], hi[0], hi[1], hi[2], r.ox, r.oy,
+                       r.oz, r.ix, r.iy, r.iz, t0, t1) &&
+         t0 <= t1 && t1 > 0.0f && t0 < r.best.t;
 }
 
 // The leaves that the lanes in `mask` want this step, one after another,
@@ -144,20 +131,10 @@ __device__ __forceinline__ void leaf_tests(unsigned mask, int first,
         ck = k;
       }
     }
-    // arg-min of (t, k) over the warp by two integer reductions: a hit's t
-    // is positive, so its bits order as the floats do, and NO_HIT is above
-    // them all; then the least k among the lanes at that t. Lane k % 32
-    // tested triangle k and hands over its barycentrics.
-    const unsigned t_bits = ck >= 0 ? __float_as_uint(ct) : NO_HIT;
-    const unsigned t_min = __reduce_min_sync(FULL, t_bits);
-    if (t_min == NO_HIT) continue;
-    const unsigned k_min =
-        __reduce_min_sync(FULL, t_bits == t_min ? ck : NO_HIT);
-    const float wu = __shfl_sync(FULL, cu, k_min % 32);
-    const float wv = __shfl_sync(FULL, cv, k_min % 32);
-    if (lane == src)
-      pt::take_hit(tri_record(tris, f, k_min), __uint_as_float(t_min), wu, wv,
-                   r.best);
+    float t, u, v;
+    int k;
+    if (pt::warp_winner(ct, ck, cu, cv, t, k, u, v) && lane == src)
+      pt::take_hit(tri_record(tris, f, k), t, u, v, r.best);
   }
 }
 
@@ -285,29 +262,14 @@ cudaError_t launch_walk(int device, size_t smem_bytes, cudaStream_t stream,
                         int n_nodes, const float* tris, int root,
                         const float* const* planes, float* const* outs,
                         int* mat_out, unsigned* counters, const int* list) {
-  // the grid: as many blocks as the card holds at once (cached per device
-  // and shared-memory size; a table's size changes only with the scene)
-  struct Fit {
-    int device = -1, sms = 0, per_sm = 0;
-    size_t smem = 0;
-  };
-  static thread_local Fit fit;
-  if (fit.device != device || fit.smem != smem_bytes) {
-    Fit f;
-    f.device = device;
-    f.smem = smem_bytes;
-    cudaError_t err = cudaDeviceGetAttribute(
-        &f.sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &f.per_sm, packet_kernel_walk<kSmem>, THREADS, smem_bytes);
-    if (err != cudaSuccess) return err;
-    fit = f;
-  }
-  const int sms = fit.sms, per_sm = fit.per_sm;
+  // the grid: as many blocks as the card holds at once, or fewer for a
+  // short pool
+  int resident = 0;
+  const cudaError_t err = pt::resident_blocks(
+      reinterpret_cast<const void*>(packet_kernel_walk<kSmem>), device,
+      THREADS, smem_bytes, resident);
+  if (err != cudaSuccess) return err;
   const long long need = (static_cast<long long>(n) + 31) / 32;
-  const long long resident =
-      static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   const int blocks = static_cast<int>(need < resident ? need : resident);
   packet_kernel_walk<kSmem><<<blocks, THREADS, smem_bytes, stream>>>(
       nodes_f, nodes_i, n_nodes, tris, root, planes[0], planes[1], planes[2],

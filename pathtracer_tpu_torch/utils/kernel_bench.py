@@ -1,6 +1,6 @@
-"""Times of the packet walk and the scan on the main path's inputs, by CUDA
-events and by torch.profiler's device time, for comparing two checkouts of
-the port on one card:
+"""Times of the cull, stream, packet-walk and scan kernels (B1-B4) on the
+main path's inputs, by CUDA events and by torch.profiler's device time, for
+comparing two checkouts of the port on one card:
 
     python pathtracer_tpu_torch/utils/kernel_bench.py [--root DIR] \
         [--json FILE]
@@ -8,12 +8,15 @@ the port on one card:
 `--root` is the checkout whose `pathtracer_tpu_torch` is imported and whose
 kernels are built (default: the one holding this file), so the same script
 times an older checkout unpacked beside this one. Inputs, as chip_smoke.py
-phases 3 and 9 take them: the teapot 800x800 bounce-1 pool; the packet
-walk's binned-fallback call on it and the walk over every live lane
-(bvh_impl "pallas"); the scan on its int32 liveness mask and on 2^24 + 3
+phases 3 and 9 take them: the teapot 800x800 bounce-1 pool, and every cull
+and stream call of its binned intersection (three culls and two streams,
+each on its pass's inputs); the bounce-1 pass-1 cull and stream of
+animal.json at 800x800 (48-row treelets); the packet walk's binned-fallback
+call on the teapot pool and the walk over every live lane (bvh_impl
+"pallas"); the scan on the teapot pool's int32 liveness mask and on 2^24 + 3
 random bits, beside torch.cumsum. Each kernel's outputs are checked against
-its plain version first. Prints one JSON object, with the card's name and
-power limit.
+its plain version first, floats by their bits. Prints one JSON object, with
+the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -96,12 +99,64 @@ def timed(fn, reps: int = 20) -> dict:
     return {"ms": ms, "device_ms": dms, "device_by_kernel": by_name}
 
 
+def same_bits(got, ref) -> bool:
+    """Every output tensor equal, floats by their bits (so -0 and +0, or two
+    NaNs of other payloads, differ)."""
+    import torch
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+    return all(torch.equal(bits(a), bits(b)) for a, b in zip(got, ref))
+
+
+def bounce1(scene, settings, dev):
+    """One iteration's bounce-1 state of `scene` and its live mask."""
+    from pathtracer_tpu_torch.engine import wavefront
+    from pathtracer_tpu_torch.ops import rng
+    irng = rng.IterationRng(0, 1, pixel_map=settings.pixel_map())
+    state = wavefront.generate_paths(scene, settings, irng)
+    accum = wavefront.zero_accum(settings, dev)
+    state = wavefront.bounce_step(scene, settings, irng, 0, state, accum)
+    return state, state.remaining_bounces > 0
+
+
+def binned_calls(scene, settings, state, live) -> dict:
+    """The arguments of every cull, stream and packet-walk call of the
+    binned intersection of `state`'s rays, in call order."""
+    from pathtracer_tpu_torch.ops import binned, bvh_packet
+    from pathtracer_tpu_torch.ops.intersect import intersect_scene
+    calls = {"cull": [], "stream": [], "packet": []}
+
+    def recording(name, fn):
+        def wrapper(*args):
+            calls[name].append(args)
+            return fn(*args)
+        return wrapper
+
+    with mock.patch.object(binned, "cull", recording("cull", binned.cull)), \
+            mock.patch.object(binned, "stream",
+                              recording("stream", binned.stream)), \
+            mock.patch.object(bvh_packet, "packet_walk",
+                              recording("packet", bvh_packet.packet_walk)):
+        intersect_scene(scene, settings.geom_types, state.origin,
+                        state.direction, bvh_impl="binned", active=live)
+    return calls
+
+
+def bench_binned(kern, plain, args, n_work: int) -> dict:
+    """A cull or stream call: bit-equal to its plain version, then timed."""
+    if not same_bits(kern(*args), plain(*args)):
+        raise AssertionError(f"{kern.__name__}: differs from plain")
+    rec = timed(lambda: kern(*args))
+    rec.update(lanes=args[-1].shape[0], work=n_work,
+               host_us=host_us(lambda: kern(*args), 200))
+    return rec
+
+
 def bench() -> dict:
     import torch
     from pathtracer_tpu_torch import load_scene
-    from pathtracer_tpu_torch.engine import wavefront
-    from pathtracer_tpu_torch.ops import bvh_packet, kernels, rng, scan
-    from pathtracer_tpu_torch.ops.intersect import intersect_scene
+    from pathtracer_tpu_torch.ops import binned, bvh_packet, kernels, scan
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_bench: torch sees no CUDA device")
@@ -109,26 +164,28 @@ def bench() -> dict:
     _, secs, _ = kernels.build()
     out = {"card": card_line(), "root": os.path.dirname(os.path.dirname(
         os.path.abspath(kernels.__file__))), "build_s": secs}
-    scene, settings = load_scene("scenes/teapot.json", dev)
-    captured = {}
-    real = bvh_packet.packet_walk
-
-    def recording(*args):
-        captured.setdefault("packet", args)
-        return real(*args)
-
     with torch.inference_mode():
-        irng = rng.IterationRng(0, 1, pixel_map=settings.pixel_map())
-        state = wavefront.generate_paths(scene, settings, irng)
-        accum = wavefront.zero_accum(settings, dev)
-        state = wavefront.bounce_step(scene, settings, irng, 0, state, accum)
-        live = state.remaining_bounces > 0
-        with mock.patch.object(bvh_packet, "packet_walk", recording):
-            intersect_scene(scene, settings.geom_types, state.origin,
-                            state.direction, bvh_impl="binned", active=live)
+        for name in ("teapot", "animal"):
+            scene, settings = load_scene(f"scenes/{name}.json", dev)
+            state, live = bounce1(scene, settings, dev)
+            calls = binned_calls(scene, settings, state, live)
+            if name == "teapot":
+                teapot = scene, state, live, calls["packet"][0]
+            else:                      # pass 1 only
+                calls = {k: v[:1] for k, v in calls.items()}
+            for k, args in enumerate(calls["cull"]):
+                out[f"cull_{name}_{k}"] = bench_binned(
+                    binned.cull, binned.cull_plain, args,
+                    int((args[-1] > 0).sum()))
+            for k, args in enumerate(calls["stream"]):
+                tid = args[-1]
+                out[f"stream_{name}_{k}"] = bench_binned(
+                    binned.stream, binned.stream_plain, args,
+                    int(((tid >= 0) & (tid < args[0].numel() // 4)).sum()))
+        scene, state, live, fallback = teapot
         n = live.shape[0]
         inputs = {
-            "fallback": captured["packet"],
+            "fallback": fallback,
             "all_live": (scene.bvh_packed_f, scene.bvh_packed_i,
                          scene.tris_packed, scene.mesh_roots[0],
                          *(c.contiguous() for c in state.origin),
@@ -138,7 +195,7 @@ def bench() -> dict:
         for name, args in inputs.items():
             got = bvh_packet.packet_walk(*args)
             ref = bvh_packet.packet_walk_plain(*args)
-            equal = all(torch.equal(a, b) for a, b in zip(got, ref))
+            equal = same_bits(got, ref)
             if not equal:
                 raise AssertionError(f"packet {name}: differs from plain")
             rec = timed(lambda: bvh_packet.packet_walk(*args))

@@ -44,6 +44,7 @@ from pathtracer_tpu_torch.scene.fixtures import REPO_ROOT, scene_path
 from pathtracer_tpu_torch.scene.loader import scene_from_jax_arrays
 from pathtracer_tpu_torch.scene.types import TREELET_NONE
 from pathtracer_tpu_torch.utils.vec import Vec3
+from test_torch_kernels import plane_rays, tie_rays, write_tie_scene
 
 torch.set_num_threads(2)
 
@@ -138,6 +139,92 @@ def test_cull_plain_matches_jax_cull_kernel(teapot):
         pt0, pid = j_t0, j_id
 
 
+@pytest.fixture(scope="module")
+def tie(tmp_path_factory):
+    """The tie scene (tests/test_torch_kernels.py write_tie_scene) as both
+    packages load it: one coincident group of 150 triangles in two treelets
+    of equal boxes, ids 0 and 1, and one of 40 in treelet 2."""
+    path = write_tie_scene(str(tmp_path_factory.mktemp("tie")))
+    j_scene, _ = jax_load_scene(path)
+    return j_scene, scene_from_jax_arrays(jax_leaves(j_scene), "cpu")
+
+
+def _cull_steps(j_scene, scene, o, d, bound, steps):
+    """`steps` enumeration steps of every lane from the start state, each
+    resuming strictly after the last step's (t0, id): cull_plain against
+    the JAX kernel, ids equal and t0 equal in its bits (so in the sign of a
+    zero). Returns each step's (ids, t0)."""
+    n = o.shape[1]
+    live = np.ones(n, np.int32)
+    pt0 = np.full(n, -FLT_MAX, np.float32)
+    pid = np.full(n, -1, np.int32)
+    t = lambda a: torch.from_numpy(np.array(a))
+    out = []
+    for _ in range(steps):
+        j_id, j_t0 = _jax_cull(j_scene, o, d, bound, pt0, pid, live)
+        p_id, p_t0 = binned.cull_plain(scene.treelet_f, scene.treelet_super,
+                                       *map(t, o), *map(t, d), t(bound),
+                                       t(pt0), t(pid), t(live))
+        np.testing.assert_array_equal(p_id.numpy(), j_id)
+        np.testing.assert_array_equal(p_t0.numpy().view(np.int32),
+                                      j_t0.view(np.int32))
+        out.append((j_id, j_t0))
+        pt0, pid = j_t0, j_id
+    return out
+
+
+def test_cull_plain_breaks_treelet_ties_as_jax(tie):
+    """Treelets 0 and 1 have equal boxes, so every ray at the first group
+    ties on t0: the lower id comes first, the other next at the same t0,
+    then nothing; the second group's rays want treelet 2 alone."""
+    j_scene, scene = tie
+    o, d, group = tie_rays(N, 3)
+    bound = np.full(N, FLT_MAX, np.float32)
+    (id0, t00), (id1, t01), (id2, _) = _cull_steps(j_scene, scene, o, d,
+                                                   bound, 3)
+    g0 = group == 0
+    assert (id0[g0] == 0).all() and (id1[g0] == 1).all()
+    np.testing.assert_array_equal(t01[g0], t00[g0])
+    assert (id0[~g0] == 2).all() and (id1[~g0] == TREELET_NONE).all()
+    assert (id2 == TREELET_NONE).all()
+
+
+def test_cull_plain_on_box_faces_matches_jax_bits(teapot):
+    """Origins exactly on treelet box faces enter boxes at t0 = +0 or -0:
+    ids and the bits of t0 as JAX's, over two enumeration steps."""
+    j_scene, _, scene = teapot
+    o, d = plane_rays(scene.treelet_f, N, 12)
+    bound = np.full(N, FLT_MAX, np.float32)
+    (ids, t0), _ = _cull_steps(j_scene, scene, o, d, bound, 2)
+    zero = (t0 == 0) & (ids < TREELET_NONE)
+    assert (zero & np.signbit(t0)).sum() > 50
+    assert (zero & ~np.signbit(t0)).sum() > 50
+
+
+@pytest.mark.parametrize("planes", [2, 3])
+def test_cull_plain_on_box_edges_matches_jax_values(teapot, planes):
+    """Origins on box edges and corners: a slab's t0 is then the max of two
+    zeros of either sign, which torch's CPU maximum and XLA's may order
+    differently, so t0 is held to JAX's value (-0 == +0); the ids, which
+    decide the enumeration, exactly."""
+    j_scene, _, scene = teapot
+    o, d = plane_rays(scene.treelet_f, N, 20 + planes, planes)
+    bound = np.full(N, FLT_MAX, np.float32)
+    live = np.ones(N, np.int32)
+    pt0 = np.full(N, -FLT_MAX, np.float32)
+    pid = np.full(N, -1, np.int32)
+    t = lambda a: torch.from_numpy(np.array(a))
+    for _ in range(2):
+        j_id, j_t0 = _jax_cull(j_scene, o, d, bound, pt0, pid, live)
+        p_id, p_t0 = binned.cull_plain(scene.treelet_f, scene.treelet_super,
+                                       *map(t, o), *map(t, d), t(bound),
+                                       t(pt0), t(pid), t(live))
+        np.testing.assert_array_equal(p_id.numpy(), j_id)
+        np.testing.assert_array_equal(p_t0.numpy(), j_t0)
+        assert ((j_t0 == 0) & (j_id < TREELET_NONE)).sum() > 50
+        pt0, pid = j_t0, j_id
+
+
 def _stream_oracle(scene, o, d, bound, tid):
     """Numpy, one triangle after another: the closest hit strictly below
     bound among treelet tid's rows, normal normalized and faced toward the
@@ -207,6 +294,30 @@ def test_stream_plain_matches_numpy_oracle(teapot):
     hit = ref_t > 0
     for c in range(3):
         np.testing.assert_array_equal(got[1 + c].numpy()[hit], ref_n[c][hit])
+
+
+def test_stream_plain_keeps_the_first_coincident_triangle(tie):
+    """Every triangle of a coincident group ties on t: the stream of each
+    ray's first treelet keeps the treelet's first one (m0, id 1, in
+    treelet 0; m2, id 3, in treelet 2), as the numpy oracle does."""
+    _, scene = tie
+    o, d, group = tie_rays(N, 4)
+    bound = np.full(N, FLT_MAX, np.float32)
+    t = lambda a: torch.from_numpy(np.array(a))
+    tid, _ = binned.cull_plain(
+        scene.treelet_f, scene.treelet_super, *map(t, o), *map(t, d),
+        t(bound), torch.full((N,), -FLT_MAX),
+        torch.full((N,), -1, dtype=torch.int32),
+        torch.ones(N, dtype=torch.int32))
+    got = binned.stream(scene.treelet_i, scene.tris_packed, scene.tre_rows,
+                        *map(t, o), *map(t, d), t(bound), tid)
+    ref_t, ref_n, ref_m = _stream_oracle(scene, o, d, bound, tid.numpy())
+    np.testing.assert_array_equal(got[0].numpy().view(np.int32),
+                                  ref_t.view(np.int32))
+    np.testing.assert_array_equal(got[4].numpy(), ref_m)
+    for c in range(3):
+        np.testing.assert_array_equal(got[1 + c].numpy(), ref_n[c])
+    assert (ref_m[group == 0] == 1).all() and (ref_m[group == 1] == 3).all()
 
 
 def _assert_hits_match(port, ref, act, t_exact):

@@ -11,6 +11,7 @@ there is no CUDA device.
 """
 import json
 import os
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -30,6 +31,38 @@ FLT_MAX = 3.402823466e38
 def _need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+
+
+def _same_bits(got, ref):
+    """Every output equal, float32 outputs by their bits (torch.equal takes
+    -0 == +0)."""
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+    for k, (a, b) in enumerate(zip(got, ref)):
+        assert torch.equal(bits(a), bits(b)), f"output {k}"
+
+
+def _cull_then_stream(scene, o, d, bound, live, pt0=None, pid=None):
+    """The cull kernel, then the stream kernel on the cull's ids, on one
+    pool: each one launch, each equal to its plain version bit for bit.
+    Returns the cull's and the stream's outputs."""
+    n = bound.shape[0]
+    if pt0 is None:
+        pt0 = torch.full((n,), -FLT_MAX, device="cuda")
+        pid = torch.full((n,), -1, dtype=torch.int32, device="cuda")
+    before = dict(kernels.LAUNCHES)
+    c_args = (scene.treelet_f, scene.treelet_super, *o, *d, bound, pt0, pid,
+              live)
+    got = binned.cull(*c_args)
+    _same_bits(got, binned.cull_plain(*c_args))
+    s_args = (scene.treelet_i, scene.tris_packed, scene.tre_rows, *o, *d,
+              bound, got[0])
+    got_s = binned.stream(*s_args)
+    _same_bits(got_s, binned.stream_plain(*s_args))
+    assert kernels.LAUNCHES["cull"] == before["cull"] + 1
+    assert kernels.LAUNCHES["stream"] == before["stream"] + 1
+    torch.cuda.synchronize()
+    return got, got_s
 
 
 def _planes(n, seed, device):
@@ -86,6 +119,28 @@ def tie_rays(n: int, seed: int):
     o = p + np.stack([r.normal(size=n) * 0.3, r.normal(size=n) * 0.3,
                       3.0 * side])
     return o.astype(np.float32), (p - o).astype(np.float32), group
+
+
+def plane_rays(treelet_f, n: int, seed: int, planes: int = 1):
+    """(origin [3, n], direction [3, n]) as float32 arrays: rays whose
+    origins lie exactly on `planes` of the lo / hi planes of a random
+    treelet box (1: on a face, 2: an edge, 3: a corner; the other
+    coordinates inside its range), so many enter a box at t0 = +0 or -0;
+    directions random."""
+    r = np.random.default_rng(seed)
+    tab = np.asarray(treelet_f).reshape(-1, 8)
+    ok = np.nonzero(np.isfinite(tab[:, :6]).all(1))[0]
+    k = r.choice(ok, n)
+    lo, hi = tab[k, 0:3], tab[k, 3:6]
+    o = lo + r.uniform(size=(n, 3)).astype(np.float32) * (hi - lo)
+    lane, first = np.arange(n), r.integers(0, 3, n)
+    for p in range(planes):
+        axis = (first + p) % 3
+        o[lane, axis] = np.where(r.uniform(size=n) < 0.5, lo[lane, axis],
+                                 hi[lane, axis])
+    d = r.normal(size=(n, 3))
+    return (np.ascontiguousarray(o.T, np.float32),
+            np.ascontiguousarray(d.T, np.float32))
 
 
 def aimed_planes(scene, n, seed, device):
@@ -229,12 +284,10 @@ def test_kernels_match_plain_versions_on_the_card(name):
     args = (scene.treelet_f, scene.treelet_super, *o, *d, bound, pt0, pid,
             act)
     k_id, k_t0 = binned.cull(*args)
-    p_id, p_t0 = binned.cull_plain(*args)
-    assert torch.equal(k_id, p_id) and torch.equal(k_t0, p_t0)
+    _same_bits((k_id, k_t0), binned.cull_plain(*args))
     s_args = (scene.treelet_i, scene.tris_packed, scene.tre_rows, *o, *d,
               bound, k_id)
-    for a, b in zip(binned.stream(*s_args), binned.stream_plain(*s_args)):
-        assert torch.equal(a, b)
+    _same_bits(binned.stream(*s_args), binned.stream_plain(*s_args))
     w_args = (scene.bvh_packed_f, scene.bvh_packed_i, scene.tris_packed,
               scene.mesh_roots[0], *o, *d, act, bound)
     for a, b in zip(bvh_packet.packet_walk(*w_args),
@@ -294,9 +347,114 @@ def test_cull_reads_large_tables_through_the_cache():
     pid = torch.full((n,), -1, dtype=torch.int32, device="cuda")
     args = (tf, sup, *o, *d, bound, pt0, pid, act)
     k_id, k_t0 = binned.cull(*args)
-    p_id, p_t0 = binned.cull_plain(*args)
     assert int((k_id < binned.TREELET_NONE).sum()) > 1000
-    assert torch.equal(k_id, p_id) and torch.equal(k_t0, p_t0)
+    _same_bits((k_id, k_t0), binned.cull_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["teapot", "animal"])
+def test_cull_and_stream_on_every_binned_pass(name):
+    """Every cull and stream call of the binned pipeline on the card gets
+    the pool that pass hands it (sorted per column, live lanes and lanes
+    with a treelet at the column heads): each bit-equal to its plain
+    version on those inputs."""
+    _need_cuda()
+    scene, _ = load_scene(scene_path(name), "cuda")
+    o, d, bound = aimed_planes(scene, 65536, 11, "cuda")
+    act = (torch.arange(65536, device="cuda") % 5 > 0)
+    calls = {"cull": [], "stream": []}
+
+    def recording(key, fn):
+        def wrapper(*args):
+            calls[key].append(args)
+            return fn(*args)
+        return wrapper
+
+    with mock.patch.object(binned, "cull", recording("cull", binned.cull)), \
+            mock.patch.object(binned, "stream",
+                              recording("stream", binned.stream)):
+        binned.mesh_intersect_binned(scene, scene.mesh_roots, Vec3(*o),
+                                     Vec3(*d), active=act, t_bound=bound)
+    passes = 3 if name == "animal" else 2
+    assert len(calls["cull"]) == passes + 1
+    assert len(calls["stream"]) == passes
+    for args in calls["cull"]:
+        _same_bits(binned.cull(*args), binned.cull_plain(*args))
+    assert int((calls["stream"][0][-1] < binned.TREELET_NONE).sum()) > 1000
+    for args in calls["stream"]:
+        _same_bits(binned.stream(*args), binned.stream_plain(*args))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["teapot", "animal"])
+def test_cull_and_stream_on_box_faces(name):
+    """Origins exactly on treelet box faces: entry t0 of +0 and -0, whose
+    bits the cull must keep; two enumeration steps."""
+    _need_cuda()
+    scene, _ = load_scene(scene_path(name), "cuda")
+    o, d = (list(torch.from_numpy(c).cuda() for c in a)
+            for a in plane_rays(scene.treelet_f.cpu(), 16384, 12))
+    n = 16384
+    bound = torch.full((n,), FLT_MAX, device="cuda")
+    live = torch.ones(n, dtype=torch.int32, device="cuda")
+    (k_id, k_t0), _ = _cull_then_stream(scene, o, d, bound, live)
+    zero = k_t0 == 0
+    assert int((zero & torch.signbit(k_t0)).sum()) > 100
+    assert int((zero & ~torch.signbit(k_t0)).sum()) > 100
+    _cull_then_stream(scene, o, d, bound, live, k_t0, k_id)
+
+
+@pytest.mark.cuda
+def test_cull_and_stream_keep_the_tie_rule(tmp_path):
+    """Equal treelet boxes (the tie scene's two treelets of one coincident
+    group) tie on t0: the lower id first, then the other at the same t0;
+    the stream keeps the first coincident triangle of its treelet."""
+    _need_cuda()
+    scene, _ = load_scene(write_tie_scene(str(tmp_path)), "cuda")
+    o, d, group = tie_rays(4096, 8)
+    c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    o, d = list(map(c, o)), list(map(c, d))
+    n = group.shape[0]
+    bound = torch.full((n,), FLT_MAX, device="cuda")
+    live = torch.ones(n, dtype=torch.int32, device="cuda")
+    (k_id, k_t0), hit = _cull_then_stream(scene, o, d, bound, live)
+    g0 = torch.from_numpy(group == 0).cuda()
+    assert bool((k_id[g0] == 0).all())
+    assert bool((hit[4][g0] == 1).all()) and bool((hit[4][~g0] == 3).all())
+    (k2_id, k2_t0), _ = _cull_then_stream(scene, o, d, bound, live, k_t0,
+                                          k_id)
+    assert bool((k2_id[g0] == 1).all())
+    assert torch.equal(k2_t0[g0], k_t0[g0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,live_share", [(1, 1.0), (31, 0.7), (33, 0.7),
+                                          (4097, 0.7), (65536, 0.0)])
+def test_cull_and_stream_on_ragged_and_dead_pools(n, live_share):
+    """One lane, sizes that are not a multiple of 32 (or 256), and a pool
+    with no live lane (every lane NONE, then every lane a miss)."""
+    _need_cuda()
+    scene, _ = load_scene(scene_path("teapot"), "cuda")
+    o, d, bound = aimed_planes(scene, n, 13, "cuda")
+    live = (torch.from_numpy(np.random.default_rng(n).uniform(size=n))
+            < live_share).to(torch.int32).cuda()
+    (k_id, k_t0), hit = _cull_then_stream(scene, o, d, bound, live)
+    if live_share == 0.0:
+        assert bool((k_id == binned.TREELET_NONE).all())
+        assert bool((hit[4] == -1).all())
+
+
+@pytest.mark.cuda
+def test_cull_and_stream_back_to_back_on_one_stream():
+    """n shrinking and growing between calls on one stream, the grid cached
+    per (kernel, device, shared memory): every result exact."""
+    _need_cuda()
+    scene, _ = load_scene(scene_path("teapot"), "cuda")
+    for n in (65536, 1, 4097, 641024, 31, 65536):
+        o, d, bound = aimed_planes(scene, n, n, "cuda")
+        live = torch.ones(n, dtype=torch.int32, device="cuda")
+        _cull_then_stream(scene, o, d, bound, live)
 
 
 @pytest.mark.cuda
