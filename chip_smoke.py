@@ -18,7 +18,9 @@ Phases, each fatal on failure:
      call from torch.profiler (and for cull and stream, summed over the
      bounce's calls); the push walk is also timed with its cull, which must
      not change its outputs; the packet walk also on every live lane
-     (bvh_impl "pallas" contract);
+     (bvh_impl "pallas" contract); the brute kernel also on animal.json's
+     bounce-1 pool (its first ANIMAL_LANES lanes against the plain version),
+     and beside its bound the floor of its bit-exact, unfused arithmetic;
   4. teapot 800x800 d4 through pathtracer_tpu_torch.render on the default
      path (binned), with the launch counters reset just before and read
      just after: every kernel of the path must have run, and the image
@@ -84,6 +86,12 @@ OPS_TRI = 55
 # the brute function's validity test of one (ray, triangle) pair after its
 # four linear forms: a*a, u*a, v*a, u*a + v*a, t*a, eps*a^2 and 5 compares
 OPS_BRUTE_TEST = 11
+# the brute kernel keeps -fmad=false for its bits: each multiply and add is
+# an instruction of its own, so its arithmetic takes at least twice the time
+# the FP32 peak (which counts a fused multiply-add as two operations) gives
+UNFUSED = 2.0
+ANIMAL = "scenes/animal.json"
+ANIMAL_LANES = 65536  # the plain version over every animal lane is too slow
 # the scan at ragged sizes (int32, bit for bit) beside the 640,000-lane mask
 RAGGED = (1, 31, 4095, 4097, 2 ** 24 + 3)
 # the scan's float32 tolerance: two orders of summing n float32 values differ
@@ -302,6 +310,9 @@ def main() -> int:
         def mask_plain(*a, **kw):
             return wide.wide_walk_plain(*a, variant="mask", **kw)
 
+        def brute_plain(coeffs, attrs, table, n_tris, *planes):
+            return brute.brute_plain(coeffs, attrs, *planes)
+
         src = "pathtracer_tpu_torch/csrc/"
         tpu = "pathtracer_tpu/ops/"
         hit_idx = ([0, 1, 2, 3], [4], [0])    # floats, ints, exact floats
@@ -319,7 +330,8 @@ def main() -> int:
                           tpu + "wide.py:177"),
             "wide_mask": (mask, mask_plain, "wide", hit_idx, src + "wide.cu",
                           tpu + "wide.py:319"),
-            "brute": (brute.brute, brute.brute_plain, "brute", hit_idx,
+            "brute": (brute.brute, brute_plain, "brute",
+                      ([0, 1, 2, 3], [4], [0, 1, 2, 3]),
                       src + "brute.cu", tpu + "bvh_pallas.py:427"),
         }
         report, outputs = {}, {}
@@ -354,9 +366,9 @@ def main() -> int:
                 n_bytes = need_bytes(args[:2], args[3:10], n_need, [tid],
                                      got)
             elif name == "brute":
-                ops = brute_ops(args[0], args[2].shape[0])
-                n_need = args[2].shape[0]
-                n_bytes = need_bytes(args[:2], args[2:8], n_need, [], got)
+                ops = brute_ops(args[0], args[4].shape[0])
+                n_need = args[4].shape[0]
+                n_bytes = need_bytes(args[:2], args[4:10], n_need, [], got)
             else:
                 ops = (OPS_BOX * counts["box_tests"]
                        + OPS_TRI * counts["tri_tests"])
@@ -430,6 +442,43 @@ def main() -> int:
             f"({cull_counts})")
         n_fb = int((captured["packet"][0][10] > 0).sum())
         log(f"packet fallback lanes active on the main path: {n_fb}")
+
+        # brute: the unfused floor beside the bound, and animal's bounce-1
+        # pool (93 tiles), its first ANIMAL_LANES lanes bit for bit
+        b = report["brute"]
+        b["unfused_floor_ms"] = UNFUSED * b["bound_ms"]
+        a_scene, a_set = load_scene(ANIMAL, dev, brute_tables=True)
+        a_irng = rng.IterationRng(0, 1, pixel_map=a_set.pixel_map())
+        a_state = wavefront.bounce_step(
+            a_scene, a_set, a_irng, 0,
+            wavefront.generate_paths(a_scene, a_set, a_irng),
+            wavefront.zero_accum(a_set, dev))
+        a_args = (a_scene.tris_mxu_c, a_scene.tris_mxu_n, a_scene.tris_brute,
+                  a_scene.brute_tris,
+                  *(c.contiguous() for c in a_state.origin),
+                  *(c.contiguous() for c in a_state.direction))
+        a_got = brute.brute(*a_args)
+        a_ref = brute_plain(*a_args[:4], *(c[:ANIMAL_LANES]
+                                           for c in a_args[4:]))
+        torch.cuda.synchronize()
+        err = compare("brute(animal)", [g[:ANIMAL_LANES] for g in a_got],
+                      a_ref, [0, 1, 2, 3], [4], [0, 1, 2, 3])
+        b["max_abs_err"] = max(b["max_abs_err"], err)
+        a_ms = cuda_ms(lambda: brute.brute(*a_args), reps=10)
+        a_dev, _ = device_ms(lambda: brute.brute(*a_args), reps=10)
+        a_ops = brute_ops(a_args[0], a_args[4].shape[0])
+        a_bound = bound(need_bytes(a_args[:2], a_args[4:10],
+                                   a_args[4].shape[0], [], a_got), a_ops)[0]
+        b.update(animal_lanes=a_args[4].shape[0], animal_ms=a_ms,
+                 animal_device_ms=a_dev, animal_bound_ms=a_bound,
+                 animal_unfused_floor_ms=UNFUSED * a_bound)
+        log(f"kernel brute: unfused floor {b['unfused_floor_ms']:.4f} ms "
+            f"beside the bound {b['bound_ms']:.4f}; animal "
+            f"{a_args[4].shape[0]} lanes, {a_scene.brute_tris} triangles "
+            f"swept: first {ANIMAL_LANES} lanes bit-equal, kernel "
+            f"{a_ms:.4f} ms (device {a_dev:.4f}), bound {a_bound:.4f} ms, "
+            f"unfused floor {UNFUSED * a_bound:.4f} ms")
+        del a_scene, a_state, a_args, a_got, a_ref
 
         # the packet walk on every live lane (bvh_impl="pallas" contract)
         n = state.origin.x.shape[0]

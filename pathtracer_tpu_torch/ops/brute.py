@@ -15,7 +15,10 @@ the ray; t = -1, mat = -1 on a miss. Like the JAX function it ignores
 `active` and `t_bound`: intersect_scene's merge drops hits beyond the bound.
 
 `brute` launches csrc/brute.cu for CUDA tensors, `brute_plain` (the same
-arithmetic in the same order, chunked over rays) runs for CPU tensors. The
+function by the dense 16-term sums, chunked over rays) runs for CPU tensors.
+The kernel reads the compact table of pack_tris_brute (the 19 coefficients
+a triangle that are not structurally zero) and sums only those terms; its
+results equal the plain version's bit for bit (csrc/brute.cu says why). The
 TPU kernel's dot products ran on the matrix unit; here they are summed term
 by term in FP32, so against the JAX package t agrees within rounding
 (rtol 1e-4, atol 1e-5, as tests/test_intersect.py:374 holds brute to the
@@ -25,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from ..scene.types import MXU_NFEAT, MXU_TRI_TILE
+from ..scene.types import BRUTE_ROW, MXU_NFEAT, MXU_TRI_TILE
 from ..utils.vec import Vec3
 from . import kernels
 
@@ -103,30 +106,38 @@ def brute_plain(coeffs, attrs, ox, oy, oz, dx, dy, dz, chunk=BRUTE_CHUNK):
             nn[2] * fl, torch.where(hit, at[:, 9].to(torch.int32), -1))
 
 
-def brute(coeffs, attrs, ox, oy, oz, dx, dy, dz):
-    """(t, nx, ny, nz, mat) per ray: csrc/brute.cu on CUDA tensors, the
-    plain version on CPU tensors."""
+def brute(coeffs, attrs, table, n_tris, ox, oy, oz, dx, dy, dz):
+    """(t, nx, ny, nz, mat) per ray: csrc/brute.cu over `table`, the compact
+    coefficients of its first `n_tris` triangles, on CUDA tensors; the plain
+    version over `coeffs` on CPU tensors. `table` and `n_tris` must be
+    pack_tris_brute(coeffs), as the scene builds them at load
+    (SceneArrays.tris_brute, .brute_tris): on either device the three tables
+    are checked to describe the same padded triangle count."""
+    t_pad = attrs.shape[0]
+    if (t_pad % MXU_TRI_TILE or tuple(coeffs.shape) != (4 * t_pad, MXU_NFEAT)
+            or tuple(table.shape) != (t_pad, BRUTE_ROW)
+            or not 0 <= n_tris <= t_pad):
+        raise ValueError(f"brute: coeffs {tuple(coeffs.shape)}, attrs "
+                         f"{tuple(attrs.shape)}, table {tuple(table.shape)} "
+                         f"and n_tris {n_tris} must describe the same whole "
+                         f"{MXU_TRI_TILE}-triangle tiles")
     if ox.device.type == "cpu":
         return brute_plain(coeffs, attrs, ox, oy, oz, dx, dy, dz)
     n = ox.shape[0]
-    dev = kernels.check(
-        "brute", n, cols=MXU_NFEAT, coeffs_f32=coeffs, attrs_f32=attrs,
-        ray_ox_f32=ox, ray_oy_f32=oy, ray_oz_f32=oz, ray_dx_f32=dx,
-        ray_dy_f32=dy, ray_dz_f32=dz)
-    if (attrs.shape[0] % MXU_TRI_TILE
-            or coeffs.shape[0] != 4 * attrs.shape[0]):
-        raise ValueError(f"brute: coeffs {tuple(coeffs.shape)} and attrs "
-                         f"{tuple(attrs.shape)} must hold whole "
-                         f"{MXU_TRI_TILE}-triangle tiles")
-    if coeffs.data_ptr() % 16:
-        raise ValueError("brute: coeffs must be 16-byte aligned (the kernel "
+    dev = kernels.check("brute", n, cols=MXU_NFEAT, attrs_f32=attrs,
+                        ray_ox_f32=ox, ray_oy_f32=oy, ray_oz_f32=oz,
+                        ray_dx_f32=dx, ray_dy_f32=dy, ray_dz_f32=dz)
+    if kernels.check("brute", n, cols=BRUTE_ROW, table_f32=table) != dev:
+        raise ValueError("brute: table and rays on different devices")
+    if table.data_ptr() % 16:
+        raise ValueError("brute: table must be 16-byte aligned (the kernel "
                          "reads it as float4)")
     t, nx, ny, nz, mat = kernels.hit_outputs(n, ox.device)
     if n:
         p = kernels.ptr
-        kernels.launch("brute", dev, p(coeffs), p(attrs), attrs.shape[0],
-                       p(ox), p(oy), p(oz), p(dx), p(dy), p(dz), p(t),
-                       p(nx), p(ny), p(nz), p(mat), n)
+        kernels.launch("brute", dev, p(table), p(attrs), n_tris, p(ox),
+                       p(oy), p(oz), p(dx), p(dy), p(dz), p(t), p(nx), p(ny),
+                       p(nz), p(mat), n)
     return t, nx, ny, nz, mat
 
 
@@ -141,5 +152,6 @@ def mesh_intersect_brute(scene, origin: Vec3, direction: Vec3):
             "bvh_impl='brute' needs load_scene(brute_tables=True)")
     o = [c.contiguous() for c in origin]
     d = [c.contiguous() for c in direction]
-    t, nx, ny, nz, mat = brute(scene.tris_mxu_c, scene.tris_mxu_n, *o, *d)
+    t, nx, ny, nz, mat = brute(scene.tris_mxu_c, scene.tris_mxu_n,
+                               scene.tris_brute, scene.brute_tris, *o, *d)
     return t, Vec3(nx, ny, nz), mat

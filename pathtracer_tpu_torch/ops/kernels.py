@@ -59,7 +59,8 @@ _ARGTYPES = {
     # the same without cull
     "pt_wide_mask": [_I, _P, _P, _I, _P, _I, _P] + [_P] * 8 + [_P] * 5
                     + [_I, _P],
-    # device, coeffs, attrs, n_tris, 6 ray planes, 5 outputs, n, stream
+    # device, compact table, attrs, n_tris, 6 ray planes, 5 outputs, n,
+    # stream
     "pt_brute": [_I, _P, _P, _I] + [_P] * 6 + [_P] * 5 + [_I, _P],
     # device, x, out, scratch, capacity, n, is_float, epoch, stream
     "pt_scan": [_I, _P, _P, _P, ctypes.c_longlong, _I, _I, ctypes.c_uint,

@@ -26,7 +26,7 @@ from .bvh import align_leaves, build_bvh
 from .bvh8 import build_wide_bvh, concat_wide
 from .types import (CUBE, MESH, SPHERE, BVHArrays, CameraArrays, GeomArrays,
                     MaterialArrays, RenderSettings, SceneArrays,
-                    make_scene_arrays)
+                    make_scene_arrays, pack_tris_brute)
 
 # tri count above which a mesh gets fat 288-tri treelets (48 rows)
 BIG_MESH_TRIS = 24000
@@ -300,6 +300,7 @@ def scene_from_jax_arrays(arrays: dict, device) -> SceneArrays:
                       for f in dataclasses.fields(cls)})
 
     geoms = group(GeomArrays, "geoms")
+    brute, brute_tris = pack_tris_brute(np.asarray(arrays["tris_mxu_c"]))
     gtype = np.asarray(arrays["geoms.gtype"])
     roots = np.asarray(arrays["geoms.root_node"])
     return SceneArrays(
@@ -312,9 +313,11 @@ def scene_from_jax_arrays(arrays: dict, device) -> SceneArrays:
         treelet_f=t("treelet_f"), treelet_i=t("treelet_i"),
         treelet_super=t("treelet_super"),
         tris_mxu_c=t("tris_mxu_c"), tris_mxu_n=t("tris_mxu_n"),
+        tris_brute=torch.as_tensor(brute, device=device),
         nodes8_f=t("nodes8_f"), nodes8_i=t("nodes8_i"), tris8=t("tris8"),
         wide_root=t("wide_root"),
         tre_rows=int(np.asarray(arrays["treelet_rows"]).shape[0]),
         mesh_roots=tuple(int(r) for g, r in zip(gtype, roots) if g == MESH),
         # the JAX placeholder forest is all zeros: no slot of any kind
-        wide_built=bool(np.asarray(arrays["nodes8_i"]).any()))
+        wide_built=bool(np.asarray(arrays["nodes8_i"]).any()),
+        brute_tris=brute_tris)

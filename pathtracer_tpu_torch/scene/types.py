@@ -38,6 +38,11 @@ WIDE_GROUPS_PER_BLOCK = 6  # 8-tri groups per (8, 128) tris8 block: group g
 #                            at lanes (g%6)*20..+19, triangle t at row t
 MXU_TRI_TILE = 512    # triangles per brute-force tile (table padding unit)
 MXU_NFEAT = 16        # per-ray feature vector [d, o, o x d, 1] padded 10->16
+# the features each linear form (a, un, vn, tn) of pack_tris_mxu has a
+# coefficient for; every other coefficient is zero
+BRUTE_TERMS = ((0, 1, 2), (0, 1, 2, 6, 7, 8), (0, 1, 2, 6, 7, 8),
+               (3, 4, 5, 9))
+BRUTE_ROW = 20        # the 19 structural coefficients of a triangle + a pad
 
 
 @dataclasses.dataclass
@@ -115,6 +120,7 @@ class SceneArrays:
     # brute_tables=True
     tris_mxu_c: torch.Tensor     # [Tt*4*512, 16] f32 linear-form coefficients
     tris_mxu_n: torch.Tensor     # [Tt*512, 16] f32 (n0, n1, n2, mat)
+    tris_brute: torch.Tensor     # [Tt*512, 20] f32 (pack_tris_brute)
     # 8-wide BVH tables (pack_wide_tables): one forest covers every mesh,
     # rooted at wide_root[0]; a one-node empty forest unless loaded with
     # wide_tables=True
@@ -124,10 +130,12 @@ class SceneArrays:
     wide_root: torch.Tensor      # [1] i32
     # host-side statics: the rows-per-treelet bound (the JAX package carries
     # it as the shape of `treelet_rows`), the BVH root of every mesh geom,
-    # and whether nodes8_* / tris8 hold a built forest (not the placeholder)
+    # whether nodes8_* / tris8 hold a built forest (not the placeholder), and
+    # the triangles the brute-force kernel sweeps (pack_tris_brute)
     tre_rows: int
     mesh_roots: tuple
     wide_built: bool
+    brute_tris: int
 
     @property
     def device(self) -> torch.device:
@@ -462,6 +470,34 @@ def pack_tris_mxu(tris: dict):
     return coeffs.astype(np.float32), attrs.astype(np.float32)
 
 
+def pack_tris_brute(coeffs: np.ndarray):
+    """The brute-force kernel's compact table (csrc/brute.cu) from
+    pack_tris_mxu's coefficients: (table [T_pad, 20] f32, n_tris).
+
+    Row j holds triangle j's BRUTE_TERMS coefficients, form after form in
+    feature order (a 0-2 | un 0-2, 6-8 | vn 0-2, 6-8 | tn 3-5, 9), and a
+    zero pad. n_tris is one past the last triangle whose `a` row is not all
+    zero: a triangle with a == 0 never hits, so the kernel's sweep stops
+    there, before the padding slots. Raises unless every other coefficient
+    is +0.0 by its bits: the kernel drops those terms, and its results equal
+    the 16-term sums bit for bit only then.
+    """
+    c = np.ascontiguousarray(coeffs, np.float32).reshape(
+        -1, 4, MXU_TRI_TILE, MXU_NFEAT).transpose(1, 0, 2, 3).reshape(
+        4, -1, MXU_NFEAT)
+    zero = np.ones(c.shape, bool)
+    for q, terms in enumerate(BRUTE_TERMS):
+        zero[q, :, list(terms)] = False
+    if (c.view(np.uint32)[zero] != 0).any():
+        raise ValueError("pack_tris_brute: a coefficient outside the "
+                         "structural terms is not +0.0")
+    table = np.zeros((c.shape[1], BRUTE_ROW), np.float32)
+    table[:, :19] = np.concatenate(
+        [c[q][:, list(terms)] for q, terms in enumerate(BRUTE_TERMS)], axis=1)
+    live = np.nonzero((c[0] != 0).any(axis=1))[0]
+    return table, int(live[-1]) + 1 if live.size else 0
+
+
 def _inverted_boxes(shape) -> np.ndarray:
     """Zero table with 8-field records whose boxes are inverted (min=+inf,
     max=-inf): a slab test against them never enters."""
@@ -552,6 +588,7 @@ def make_scene_arrays(geom_list, material_list, bvh_nodes, bvh_tris, camera,
             mxu_c, mxu_n = pack_tris_mxu(tri_dict)
         else:
             mxu_c = mxu_n = np.zeros((0, MXU_NFEAT), np.float32)
+    brute, brute_tris = pack_tris_brute(mxu_c)
     if wide_data is not None:
         wide_nodes, tris8_dict, wide_root_idx = wide_data
         nodes8_f, nodes8_i, tris8 = pack_wide_tables(wide_nodes, tris8_dict)
@@ -586,10 +623,10 @@ def make_scene_arrays(geom_list, material_list, bvh_nodes, bvh_tris, camera,
         tris_packed=f32(packed_t),
         treelet_f=f32(treelet_f), treelet_i=i32(treelet_i),
         treelet_super=f32(treelet_super),
-        tris_mxu_c=f32(mxu_c), tris_mxu_n=f32(mxu_n),
+        tris_mxu_c=f32(mxu_c), tris_mxu_n=f32(mxu_n), tris_brute=f32(brute),
         nodes8_f=f32(nodes8_f), nodes8_i=i32(nodes8_i), tris8=f32(tris8),
         wide_root=i32([wide_root_idx]),
         tre_rows=int(tre_rows or MAX_TRE_ROWS),
         mesh_roots=tuple(int(x.get("root_node", -1)) for x in geom_list
                          if x["type"] == MESH),
-        wide_built=wide_data is not None)
+        wide_built=wide_data is not None, brute_tris=brute_tris)

@@ -1,6 +1,7 @@
-"""Times of the cull, stream, packet-walk and scan kernels (B1-B4) on the
-main path's inputs, by CUDA events and by torch.profiler's device time, for
-comparing two checkouts of the port on one card:
+"""Times of the cull, stream, packet-walk, scan and brute-force kernels
+(B1-B4, B7) on the main path's inputs, by CUDA events and by
+torch.profiler's device time, for comparing two checkouts of the port on
+one card:
 
     python pathtracer_tpu_torch/utils/kernel_bench.py [--root DIR] \
         [--json FILE]
@@ -14,9 +15,13 @@ each on its pass's inputs); the bounce-1 pass-1 cull and stream of
 animal.json at 800x800 (48-row treelets); the packet walk's binned-fallback
 call on the teapot pool and the walk over every live lane (bvh_impl
 "pallas"); the scan on the teapot pool's int32 liveness mask and on 2^24 + 3
-random bits, beside torch.cumsum. Each kernel's outputs are checked against
-its plain version first, floats by their bits. Prints one JSON object, with
-the card's name and power limit.
+random bits, beside torch.cumsum; the brute-force kernel (through
+mesh_intersect_brute, whose signature every checkout shares) on every lane
+of the teapot and animal bounce-1 pools. Each kernel's outputs are checked
+against its plain version first, floats by their bits (brute: the whole
+teapot pool and the first BRUTE_CHECK_LANES animal lanes; the plain version
+over every animal lane takes too long). Prints one JSON object, with the
+card's name and power limit.
 """
 from __future__ import annotations
 
@@ -31,6 +36,10 @@ from unittest import mock
 import numpy as np
 
 FLT_MAX = 3.402823466e38
+BRUTE_CHECK_LANES = {"teapot": None, "animal": 65536}   # None: every lane
+PAD_SPINS = 16       # spin kernels on each side of a profiled window
+SPIN_CYCLES = 1000   # clock cycles a spin kernel waits
+ATTEMPTS = 3         # profiles device_ms takes before it gives up
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -52,24 +61,46 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 def device_ms(fn, reps: int, warmup: int = 2) -> tuple[float, dict]:
     """torch.profiler's device time of fn() per call, over `reps` calls:
-    (ms, {device kernel or memset name: ms per call})."""
+    (ms, {device kernel or memset name: ms per call}).
+
+    Late in a long process the profiler drops device activities: on an
+    H100, a session's first one or two (9 of 10 calls recorded), and once
+    the memsets and first kernels of 12 of 20 calls, with CPU and CUDA
+    tracing alike. So the calls are framed by PAD_SPINS short spin kernels
+    on each side, left out of the sums, which absorb a loss at either end;
+    every other kernel or memset must be recorded a whole multiple of
+    `reps` times, and a profile that fails this is taken again, up to
+    ATTEMPTS times, after which this raises rather than report a time with
+    calls missing."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(ATTEMPTS):
         torch.cuda.synchronize()
-    by_name = {}
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total:
-            by_name[evt.key] = (by_name.get(evt.key, 0.0)
-                                + evt.self_device_time_total / 1000.0 / reps)
-    return sum(by_name.values()), by_name
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PAD_SPINS):
+                torch.cuda._sleep(SPIN_CYCLES)
+            for _ in range(reps):
+                fn()
+            for _ in range(PAD_SPINS):
+                torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
+        by_name, counts = {}, {}
+        for evt in prof.key_averages():
+            if (evt.device_type == DeviceType.CUDA
+                    and evt.self_device_time_total
+                    and "spin_kernel" not in evt.key):
+                by_name[evt.key] = (by_name.get(evt.key, 0.0)
+                                    + evt.self_device_time_total / 1000.0
+                                    / reps)
+                counts[evt.key] = counts.get(evt.key, 0) + evt.count
+        lost = {k: n for k, n in counts.items() if n % reps}
+        if not lost:
+            return sum(by_name.values()), by_name
+    raise RuntimeError(f"device_ms: over {reps} calls the profiler "
+                       f"recorded {lost} ({ATTEMPTS} attempts)")
 
 
 def host_us(fn, calls: int) -> float:
@@ -153,6 +184,33 @@ def bench_binned(kern, plain, args, n_work: int) -> dict:
     return rec
 
 
+def bench_brute(scene, state, check_lanes) -> dict:
+    """The brute-force kernel on every lane of `state`'s rays: bit-equal to
+    brute_plain on the first `check_lanes` lanes (None: all), then timed."""
+    import torch
+    from pathtracer_tpu_torch.ops import brute
+
+    def call():
+        t, nrm, mat = brute.mesh_intersect_brute(scene, state.origin,
+                                                 state.direction)
+        return t, *nrm, mat
+    sl = slice(None, check_lanes)
+    ref = brute.brute_plain(scene.tris_mxu_c, scene.tris_mxu_n,
+                            *(c[sl].contiguous() for c in state.origin),
+                            *(c[sl].contiguous() for c in state.direction))
+    got = call()
+    if not same_bits([g[sl] for g in got], ref):
+        raise AssertionError("brute: differs from plain")
+    rec = timed(call, reps=10)
+    rec.update(lanes=got[0].shape[0], checked=ref[0].shape[0],
+               hits=int((got[0] > 0).sum()),
+               slots=scene.tris_mxu_n.shape[0],
+               sweep=getattr(scene, "brute_tris", scene.tris_mxu_n.shape[0]),
+               host_us=host_us(call, 20))
+    torch.cuda.synchronize()
+    return rec
+
+
 def bench() -> dict:
     import torch
     from pathtracer_tpu_torch import load_scene
@@ -164,10 +222,13 @@ def bench() -> dict:
     _, secs, _ = kernels.build()
     out = {"card": card_line(), "root": os.path.dirname(os.path.dirname(
         os.path.abspath(kernels.__file__))), "build_s": secs}
+    pools = {}
     with torch.inference_mode():
         for name in ("teapot", "animal"):
-            scene, settings = load_scene(f"scenes/{name}.json", dev)
+            scene, settings = load_scene(f"scenes/{name}.json", dev,
+                                         brute_tables=True)
             state, live = bounce1(scene, settings, dev)
+            pools[name] = scene, state
             calls = binned_calls(scene, settings, state, live)
             if name == "teapot":
                 teapot = scene, state, live, calls["packet"][0]
@@ -221,6 +282,9 @@ def bench() -> dict:
                        library_host_us=host_us(
                            lambda: torch.cumsum(x, 0, dtype=x.dtype), 1000))
             out["scan_" + name] = rec
+        for name, (b_scene, b_state) in pools.items():
+            out["brute_" + name] = bench_brute(b_scene, b_state,
+                                               BRUTE_CHECK_LANES[name])
     return out
 
 

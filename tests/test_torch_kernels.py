@@ -162,6 +162,93 @@ def aimed_planes(scene, n, seed, device):
     return [t(c) for c in o], [t(c) for c in d], t(bound)
 
 
+EXACT_CASES = ("random", "vertices", "origin", "signed_zero", "non_finite")
+
+
+def exact_soup(n: int = 700, seed: int = 0) -> dict:
+    """A triangle soup (the dict pack_tris_mxu takes) on a grid of eighths,
+    where many (ray, triangle) sums cancel exactly: a third of the triangles
+    lie in an axis plane and a tenth have a vertex at the origin. Triangle 0
+    has v0 at the origin, e2 < 0 and corner normals with zero components,
+    and the others lie in x >= 0: a ray through the origin with d > 0
+    (signed_zero) meets triangle 0 first, at its vertex v0, and gets un = -0
+    from its structural terms where the 16-term sum gives +0; the sign
+    reaches nx. 700 triangles make two 512-triangle tiles and a sweep that is not a
+    whole number of the brute kernel's chunks."""
+    r = np.random.default_rng(seed)
+    v = r.integers(-16, 17, (n, 3, 3)) / 8.0
+    for i in np.nonzero(r.uniform(size=n) < 1 / 3)[0]:
+        axis = r.integers(0, 3)
+        v[i, :, axis] = v[i, 0, axis]
+    for i in np.nonzero(r.uniform(size=n) < 0.1)[0]:
+        v[i, r.integers(0, 3)] = 0.0
+    v[:, :, 0] = np.abs(v[:, :, 0])
+    v[0] = [[0.0, 0.0, 0.0], [-1.0, 0.5, -0.25], [-0.5, -1.0, -0.75]]
+    nrm = r.integers(-8, 9, (n, 3, 3)) / 8.0
+    nrm[0] = [[-0.0, 0.0, 1.0], [1.0, 0.0, 1.0], [0.0, 1.0, 1.0]]
+    v, nrm = v.astype(np.float32), nrm.astype(np.float32)
+    return {"v0": v[:, 0], "v1": v[:, 1], "v2": v[:, 2], "n0": nrm[:, 0],
+            "n1": nrm[:, 1], "n2": nrm[:, 2],
+            "material_id": (np.arange(n) % 7).astype(np.int32)}
+
+
+def exact_rays(tris: dict, kind: str, n: int = 1000, seed: int = 0):
+    """(origin [3, n], direction [3, n]) float32 arrays for the brute-force
+    kernel, by `kind` (EXACT_CASES): "random" rays through the soup;
+    "vertices", origins on a grid of eighths aimed exactly at vertices and
+    edge midpoints of the soup, so that un or vn is often exactly zero;
+    "origin", o = 0 (half aimed at vertices and midpoints); "signed_zero",
+    rays o = -k d through the origin (exact_soup's triangle 0), d > 0 on half
+    the lanes and d < 0 on the rest; "non_finite", the "vertices" rays with
+    an Inf or NaN in o or d on five lanes of eight, finite origins whose
+    o x d overflows to NaN on one, and two left as they are."""
+    r = np.random.default_rng(seed)
+    corners = np.stack([tris[k] for k in ("v0", "v1", "v2")], 1)
+    j, a, b = r.integers(0, len(corners), n), r.integers(0, 3, n), \
+        r.integers(0, 3, n)
+    aim = (corners[j, a] + corners[j, b]) / 2    # a vertex where a == b
+    o = r.integers(-32, 33, (n, 3)) / 8.0
+    if kind == "random":
+        o = r.normal(0, 2.0, (n, 3))
+        d = r.normal(0, 1.0, (n, 3)) - o
+    elif kind == "origin":
+        o = np.zeros((n, 3))
+        d = np.where(r.uniform(size=(n, 1)) < 0.5, aim,
+                     r.normal(size=(n, 3)))
+    elif kind == "signed_zero":
+        d = r.integers(1, 33, (n, 3)) / 16.0
+        d[n // 2:] *= -1.0
+        o = -(2.0 ** r.integers(0, 4, (n, 1))) * d
+    else:
+        d = aim - o
+    o, d = o.astype(np.float32), d.astype(np.float32)
+    if kind == "non_finite":
+        lane = np.arange(n)
+        axis = r.integers(0, 3, n)
+        bad = (np.inf, -np.inf, np.nan, np.inf, np.nan)
+        for k, x in enumerate(bad):
+            sel = lane % 8 == k
+            (o if k % 2 == 0 else d)[sel, axis[sel]] = x
+        o[lane % 8 == 5] = 1e30     # d stays finite; o x d is Inf - Inf
+        d[lane % 8 == 5] *= 1e10
+    return (np.ascontiguousarray(o.T, np.float32),
+            np.ascontiguousarray(d.T, np.float32))
+
+
+def brute_args(coeffs, attrs, o, d, device):
+    """The brute wrapper's arguments for pack_tris_mxu's numpy tables and
+    numpy ray planes, on `device`."""
+    from pathtracer_tpu_torch.scene.types import pack_tris_brute
+    table, n_tris = pack_tris_brute(coeffs)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return (t(coeffs), t(attrs), t(table), n_tris, *map(t, o), *map(t, d))
+
+
+def plain_args(args):
+    """brute_plain's arguments from the brute wrapper's."""
+    return args[:2] + args[4:]
+
+
 def test_cpu_tensors_take_the_plain_versions():
     scene, _ = load_scene(scene_path("teapot"), "cpu")
     before = dict(kernels.LAUNCHES)
@@ -193,8 +280,10 @@ def test_cpu_tensors_take_the_plain_versions_of_wide_and_brute():
         for a, b in zip(wide.wide_walk(*w_args, variant=variant),
                         wide.wide_walk_plain(*w_args, variant=variant)):
             assert torch.equal(a, b)
-    b_args = (scene.tris_mxu_c, scene.tris_mxu_n, *o, *d)
-    for a, b in zip(brute.brute(*b_args), brute.brute_plain(*b_args)):
+    b_args = (scene.tris_mxu_c, scene.tris_mxu_n, scene.tris_brute,
+              scene.brute_tris, *o, *d)
+    for a, b in zip(brute.brute(*b_args),
+                    brute.brute_plain(*plain_args(b_args))):
         assert torch.equal(a, b)
     assert kernels.LAUNCHES == before
     with pytest.raises(ValueError):
@@ -262,14 +351,18 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):        # tables cut mid-block
         wide.wide_walk(scene.nodes8_f[:4], scene.nodes8_i[:4], scene.tris8,
                        scene.wide_root, *o, *d, act, bound)
-    with pytest.raises(ValueError):        # a 128-wide coefficient table
-        brute.brute(scene.nodes8_f, scene.tris_mxu_n, *o, *d)
+    b_tabs = (scene.tris_mxu_c, scene.tris_mxu_n)
+    with pytest.raises(ValueError):        # a 128-wide compact table
+        brute.brute(*b_tabs, scene.nodes8_f, scene.brute_tris, *o, *d)
     with pytest.raises(ValueError):        # part of a tile
-        brute.brute(scene.tris_mxu_c[:1024], scene.tris_mxu_n[:256], *o,
-                    *d)
+        brute.brute(*b_tabs, scene.tris_brute[:256], 256, *o, *d)
+    with pytest.raises(ValueError):        # more triangles than the table
+        brute.brute(*b_tabs, scene.tris_brute, scene.tris_brute.shape[0] + 1,
+                    *o, *d)
     with pytest.raises(ValueError):        # not 16-byte aligned
-        brute.brute(scene.tris_mxu_c.reshape(-1)[1:1 + 2048 * 16].reshape(
-            2048, 16), scene.tris_mxu_n[:512], *o, *d)
+        brute.brute(b_tabs[0][:4 * 512], b_tabs[1][:512],
+                    scene.tris_brute.reshape(-1)[1:1 + 512 * 20].reshape(
+                        512, 20), 512, *o, *d)
 
 
 @pytest.mark.cuda
@@ -323,11 +416,70 @@ def test_brute_kernel_matches_plain_version_on_the_card():
     _need_cuda()
     scene, _ = load_scene(scene_path("teapot"), "cuda", brute_tables=True)
     o, d, _, _ = _planes(16384, 2, "cuda")
-    args = (scene.tris_mxu_c, scene.tris_mxu_n, *o, *d)
+    args = (scene.tris_mxu_c, scene.tris_mxu_n, scene.tris_brute,
+            scene.brute_tris, *o, *d)
+    before = kernels.LAUNCHES["brute"]
+    got = brute.brute(*args)
+    assert kernels.LAUNCHES["brute"] == before + 1
+    assert int((got[0] > 0).sum()) > 100
+    _same_bits(got, brute.brute_plain(*plain_args(args)))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", EXACT_CASES)
+def test_brute_kernel_on_exact_and_non_finite_rays(kind):
+    """exact_soup (a sweep of 700 triangles, not a whole number of chunks)
+    against rays whose sums cancel exactly, through the origin, and with
+    non-finite features, on 1,000 lanes (not a whole number of blocks):
+    every output by its bits."""
+    _need_cuda()
+    from pathtracer_tpu_torch.scene.types import pack_tris_mxu
+    tris = exact_soup()
+    coeffs, attrs = pack_tris_mxu(tris)
+    args = brute_args(coeffs, attrs, *exact_rays(tris, kind), "cuda")
+    assert args[3] % 128 and args[4].shape[0] % 256   # chunk, rays a block
+    got = brute.brute(*args)
+    _same_bits(got, brute.brute_plain(*plain_args(args)))
+    if kind != "non_finite":
+        assert int((got[0] > 0).sum()) > 100
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 255, 257, 4097])
+def test_brute_kernel_on_ragged_pools(n):
+    _need_cuda()
+    scene, _ = load_scene(scene_path("teapot"), "cuda", brute_tables=True)
+    o, d, _, _ = _planes(n, 3, "cuda")
+    args = (scene.tris_mxu_c, scene.tris_mxu_n, scene.tris_brute,
+            scene.brute_tris, *o, *d)
+    _same_bits(brute.brute(*args), brute.brute_plain(*plain_args(args)))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles", ["one", "animal"])
+def test_brute_kernel_on_one_tile_and_many(tiles):
+    """One 512-triangle tile (exact_soup's first 300 triangles) and the
+    93 tiles of animal.json (47,238 triangles swept) on rays aimed at its
+    mesh's box."""
+    _need_cuda()
+    from pathtracer_tpu_torch.scene.types import pack_tris_mxu
+    if tiles == "one":
+        tris = {k: v[:300] for k, v in exact_soup().items()}
+        coeffs, attrs = pack_tris_mxu(tris)
+        args = brute_args(coeffs, attrs, *exact_rays(tris, "vertices"),
+                          "cuda")
+    else:
+        scene, _ = load_scene(scene_path("animal"), "cuda",
+                              brute_tables=True)
+        o, d, _ = aimed_planes(scene, 8192, 4, "cuda")
+        args = (scene.tris_mxu_c, scene.tris_mxu_n, scene.tris_brute,
+                scene.brute_tris, *o, *d)
     got = brute.brute(*args)
     assert int((got[0] > 0).sum()) > 100
-    for a, b in zip(got, brute.brute_plain(*args)):
-        assert torch.equal(a, b)
+    _same_bits(got, brute.brute_plain(*plain_args(args)))
     torch.cuda.synchronize()
 
 
