@@ -17,10 +17,13 @@ Phases, each fatal on failure:
      the work these inputs need (bound), and each kernel's device time per
      call from torch.profiler (and for cull and stream, summed over the
      bounce's calls); the push walk is also timed with its cull, which must
-     not change its outputs; the packet walk also on every live lane
-     (bvh_impl "pallas" contract); the brute kernel also on animal.json's
-     bounce-1 pool (its first ANIMAL_LANES lanes against the plain version),
-     and beside its bound the floor of its bit-exact, unfused arithmetic;
+     not change its outputs; both 8-wide walks (and the push cull) also on
+     the binned intersector's wide-fallback call and on animal.json's
+     bounce-1 pool through "wide", bit for bit; the packet walk also on
+     every live lane (bvh_impl "pallas" contract); the brute kernel also on
+     animal.json's bounce-1 pool (its first ANIMAL_LANES lanes against the
+     plain version), and beside its bound the floor of its bit-exact,
+     unfused arithmetic;
   4. teapot 800x800 d4 through pathtracer_tpu_torch.render on the default
      path (binned), with the launch counters reset just before and read
      just after: every kernel of the path must have run, and the image
@@ -246,12 +249,15 @@ def main() -> int:
 
     # -- 2. build ----------------------------------------------------------
     path, secs, build_log = kernels.build()
-    kernels.library()
+    lib = kernels.library()
     log(f"build: {secs:.2f} s -> {path}")
     for line in build_log.splitlines():
         if ("registers" in line or "spill" in line or "Compiling" in line
                 or "smem" in line):
             log(f"  ptxas: {line.strip()}")
+    log("wide walk dynamic shared memory a block: push "
+        f"{lib.pt_wide_smem(0, 0)} bytes, push with cull "
+        f"{lib.pt_wide_smem(0, 1)}, mask {lib.pt_wide_smem(1, 0)}")
 
     dev = torch.device(DEVICE)
     t0 = time.perf_counter()
@@ -270,7 +276,10 @@ def main() -> int:
 
     def recording(name, fn):
         def wrapper(*args, **kwargs):
-            captured.setdefault(name, []).append(args)
+            # the 8-wide walk's kernel table rides at the end (index 12)
+            extra = ((kwargs["nodes8_c"],) if name.startswith("wide")
+                     else ())
+            captured.setdefault(name, []).append(args + extra)
             return fn(*args, **kwargs)
         return wrapper
 
@@ -298,17 +307,18 @@ def main() -> int:
                                 state.direction, bvh_impl=impl, active=live)
         torch.cuda.synchronize()
 
-        def push(*a):
-            return wide.wide_walk(*a, variant="push")
+        def push(*a, cull=False):
+            return wide.wide_walk(*a[:12], variant="push", cull=cull,
+                                  nodes8_c=a[12])
 
         def mask(*a):
-            return wide.wide_walk(*a, variant="mask")
+            return wide.wide_walk(*a[:12], variant="mask", nodes8_c=a[12])
 
         def push_plain(*a, **kw):
-            return wide.wide_walk_plain(*a, variant="push", **kw)
+            return wide.wide_walk_plain(*a[:12], variant="push", **kw)
 
         def mask_plain(*a, **kw):
-            return wide.wide_walk_plain(*a, variant="mask", **kw)
+            return wide.wide_walk_plain(*a[:12], variant="mask", **kw)
 
         def brute_plain(coeffs, attrs, table, n_tris, *planes):
             return brute.brute_plain(coeffs, attrs, *planes)
@@ -373,7 +383,11 @@ def main() -> int:
                 ops = (OPS_BOX * counts["box_tests"]
                        + OPS_TRI * counts["tri_tests"])
                 n_need = int((args[10] > 0).sum())
-                n_bytes = need_bytes(args[:4], (*args[4:10], args[11]),
+                # the tables the kernel reads: the packet walk's three, the
+                # 8-wide walk's node table (index 12), triangles and root
+                tables = args[:4] if name == "packet" else (args[12],
+                                                            *args[2:4])
+                n_bytes = need_bytes(tables, (*args[4:10], args[11]),
                                      n_need, [args[10]], got)
             return got, err, counts, ms, dev_ms, n_need, n_bytes, ops
 
@@ -391,9 +405,11 @@ def main() -> int:
                 per_call.append({"ms": ms, "device_ms": dev_ms,
                                  "bound_ms": bound_ms, "work": n_need,
                                  "max_abs_err": err})
+                # the lanes: the last ray plane (tb) of a walk's call
+                lanes = args[11 if name.startswith("wide") else -1].shape[0]
                 log(f"kernel {name}" + (f" call {k}" if len(calls) > 1
                                         else "")
-                    + f": {args[-1].shape[0]} lanes ({n_need} needing "
+                    + f": {lanes} lanes ({n_need} needing "
                     f"work), max_abs_err {err:.3g}, kernel {ms:.4f} ms "
                     f"(device {dev_ms:.4f}), bound {bound_ms:.4f} ms by "
                     f"{bound_by} ({n_bytes} bytes, {ops} FP32 ops"
@@ -430,24 +446,49 @@ def main() -> int:
         # package): the same outputs, and its time beside the one above
         w = captured["wide"][0]
         cull_counts = {}
-        compare("wide_push cull", wide.wide_walk(*w, variant="push",
-                                                 cull=True),
+        compare("wide_push cull", push(*w, cull=True),
                 outputs["wide_push"], [0, 1, 2, 3], [4], [0, 1, 2, 3])
-        wide.wide_walk_plain(*w, variant="push", cull=True,
-                             counts=cull_counts)
-        cull_ms = cuda_ms(lambda: wide.wide_walk(*w, variant="push",
-                                                 cull=True), reps=20)
+        push_plain(*w, cull=True, counts=cull_counts)
+        cull_ms = cuda_ms(lambda: push(*w, cull=True), reps=20)
         log(f"kernel wide_push with cull: {cull_ms:.4f} ms against "
             f"{report['wide_push']['ms']:.4f} ms without, same outputs "
             f"({cull_counts})")
         n_fb = int((captured["packet"][0][10] > 0).sum())
         log(f"packet fallback lanes active on the main path: {n_fb}")
 
+        def wide_inputs(label, w):
+            """Push (with and without its cull) and mask on one captured
+            8-wide walk call: each bit-equal to the plain walk of its
+            variant, then timed."""
+            ref = push_plain(*w)
+            got = {"push": push(*w), "push cull": push(*w, cull=True),
+                   "mask": mask(*w)}
+            for key, out in got.items():
+                compare(f"wide {key} ({label})", out,
+                        mask_plain(*w) if key == "mask" else ref,
+                        [0, 1, 2, 3], [4], [0, 1, 2, 3])
+            for name, fn in (("wide_push", push), ("wide_mask", mask)):
+                dev_ms, _ = device_ms(lambda: fn(*w), reps=20)
+                report[name][f"{label}_device_ms"] = dev_ms
+                log(f"kernel {name} on {label}: {w[4].shape[0]} lanes, "
+                    f"{int((w[10] > 0).sum())} active, bit-equal, device "
+                    f"{dev_ms:.4f} ms")
+
+        # the 8-wide walk as the binned intersector's exact finish
+        with mock.patch.object(binned, "FALLBACK_IMPL", "wide"), \
+                mock.patch.object(wide, "wide_walk",
+                                  recording("wide_fallback",
+                                            wide.wide_walk)):
+            intersect_scene(scene, settings.geom_types, state.origin,
+                            state.direction, bvh_impl="binned", active=live)
+        wide_inputs("fallback", captured["wide_fallback"][0])
+
         # brute: the unfused floor beside the bound, and animal's bounce-1
         # pool (93 tiles), its first ANIMAL_LANES lanes bit for bit
         b = report["brute"]
         b["unfused_floor_ms"] = UNFUSED * b["bound_ms"]
-        a_scene, a_set = load_scene(ANIMAL, dev, brute_tables=True)
+        a_scene, a_set = load_scene(ANIMAL, dev, brute_tables=True,
+                                    wide_tables=True)
         a_irng = rng.IterationRng(0, 1, pixel_map=a_set.pixel_map())
         a_state = wavefront.bounce_step(
             a_scene, a_set, a_irng, 0,
@@ -478,6 +519,13 @@ def main() -> int:
             f"swept: first {ANIMAL_LANES} lanes bit-equal, kernel "
             f"{a_ms:.4f} ms (device {a_dev:.4f}), bound {a_bound:.4f} ms, "
             f"unfused floor {UNFUSED * a_bound:.4f} ms")
+        # the 8-wide walk on animal's bounce-1 pool (1,312 node slots)
+        with mock.patch.object(wide, "wide_walk",
+                               recording("wide_animal", wide.wide_walk)):
+            intersect_scene(a_scene, a_set.geom_types, a_state.origin,
+                            a_state.direction, bvh_impl="wide",
+                            active=a_state.remaining_bounces > 0)
+        wide_inputs("animal", captured["wide_animal"][0])
         del a_scene, a_state, a_args, a_got, a_ref
 
         # the packet walk on every live lane (bvh_impl="pallas" contract)

@@ -1,5 +1,5 @@
 // Shared device helpers of the mesh-intersection kernels (cull.cu,
-// stream.cu, packet.cu).
+// stream.cu, packet.cu, wide.cu).
 //
 // Every formula keeps the operation order of the JAX package's Pallas kernels
 // and of the plain PyTorch versions beside the wrappers. The library is built
@@ -195,6 +195,22 @@ __device__ __forceinline__ void store_miss(float bound, int i, float* t_out,
   ny_out[i] = 0.0f;
   nz_out[i] = 0.0f;
   mat_out[i] = -1;
+}
+
+// Append index i to `list` where `keep`, with one ballot and one atomicAdd
+// on `count` a warp: the compaction before a walk whose warps then fetch
+// their rays from the list (packet.cu, wide.cu). The list's order is not
+// fixed; each walk writes only its own lane's outputs. Call it on all 32
+// lanes of the warp.
+__device__ __forceinline__ void append_active(bool keep, int i,
+                                              unsigned* count, int* list) {
+  const unsigned m = __ballot_sync(FULL, keep);
+  if (m == 0) return;
+  const int lane = threadIdx.x & 31, leader = __ffs(m) - 1;
+  unsigned base = 0;
+  if (lane == leader) base = atomicAdd(count, __popc(m));
+  base = __shfl_sync(FULL, base, leader);
+  if (keep) list[base + __popc(m & ((1u << lane) - 1))] = i;
 }
 
 // Blocks of `kernel` that the card holds at once (SMs x blocks an SM holds

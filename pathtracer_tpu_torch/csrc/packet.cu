@@ -34,8 +34,9 @@
 //   1. packet_kernel_compact, over the pool: an inactive lane writes its
 //      miss (as the walk would for a lane it never enters); the active lanes
 //      of each warp append their indices to a device list with one ballot
-//      and one atomicAdd. The list's order does not matter: every lane
-//      writes only its own outputs. No host synchronization.
+//      and one atomicAdd (common.cuh append_active). The list's order does
+//      not matter: every lane writes only its own outputs. No host
+//      synchronization.
 //   2. packet_kernel_walk, persistent: each warp fetches list entries by
 //      atomicAdd (Aila & Laine, HPG 2009) until the list is done, so a warp
 //      that finishes early takes more work. A warp takes `per` rays at a
@@ -155,13 +156,7 @@ packet_kernel_compact(const int* __restrict__ act,
     pt::store_hit(pt::Best{bound, 0.0f, 0.0f, 0.0f, -1}, bound, dx[i], dy[i],
                   dz[i], i, t_out, nx_out, ny_out, nz_out, mat_out);
   }
-  const unsigned m = __ballot_sync(FULL, active);
-  if (m == 0) return;
-  const int lane = threadIdx.x & 31, leader = __ffs(m) - 1;
-  unsigned base = 0;
-  if (lane == leader) base = atomicAdd(count, __popc(m));
-  base = __shfl_sync(FULL, base, leader);
-  if (active) list[base + __popc(m & ((1u << lane) - 1))] = i;
+  pt::append_active(active, i, count, list);
 }
 
 template <bool kSmem>

@@ -11,8 +11,9 @@ source is rebuilt and a stale library is never loaded.
 `LAUNCHES` counts the calls of each kernel: a wrapper adds one where it
 launches its kernel, and nowhere else, so a run can show which kernels its
 main path went through. A call counts once whatever the number of device
-kernels it launches: "packet" is a compaction kernel and the walk over the
-compacted lanes (csrc/packet.cu).
+kernels it launches: "packet", "wide_push" and "wide_mask" are each a
+compaction kernel and a walk over the compacted lanes (csrc/packet.cu,
+wide.cu).
 """
 from __future__ import annotations
 
@@ -52,13 +53,15 @@ _ARGTYPES = {
     # 5 outputs, scratch, smem_nodes, n, stream
     "pt_packet": [_I, _P, _P, _I, _P, _I] + [_P] * 8 + [_P] * 5
                  + [_P, _I, _I, _P],
-    # device, nodes8_f, nodes8_i, n_wide, tris8, n_groups, root, 8 ray
-    # planes, cull, 5 outputs, n, stream
-    "pt_wide_push": [_I, _P, _P, _I, _P, _I, _P] + [_P] * 8 + [_I]
-                    + [_P] * 5 + [_I, _P],
+    # device, nodes8_c, n_wide, tris8, n_groups, root, 8 ray planes, cull,
+    # 5 outputs, scratch, n, stream
+    "pt_wide_push": [_I, _P, _I, _P, _I, _P] + [_P] * 8 + [_I] + [_P] * 5
+                    + [_P, _I, _P],
     # the same without cull
-    "pt_wide_mask": [_I, _P, _P, _I, _P, _I, _P] + [_P] * 8 + [_P] * 5
-                    + [_I, _P],
+    "pt_wide_mask": [_I, _P, _I, _P, _I, _P] + [_P] * 8 + [_P] * 5
+                    + [_P, _I, _P],
+    # mask, cull: a walk block's dynamic shared memory in bytes
+    "pt_wide_smem": [_I, _I],
     # device, compact table, attrs, n_tris, 6 ray planes, 5 outputs, n,
     # stream
     "pt_brute": [_I, _P, _P, _I] + [_P] * 6 + [_P] * 5 + [_I, _P],

@@ -9,7 +9,8 @@ a zero normal on a miss and on inactive lanes.
 
 The TPU kernels walk one stack per 128-ray packet and test each popped
 node's 8 children against the whole packet. Here each ray walks alone
-(csrc/wide.cu), with one of the JAX package's two stack disciplines:
+(csrc/wide.cu: 8 lanes a ray, one a child or a triangle of a group), with
+one of the JAX package's two stack disciplines:
   "push": one stack entry (entry, entry-t) per wanted child, pushed far to
       near, so the nearest child is popped first (bvh_pallas.py's design,
       the reference's per-thread stack, src/intersections.cu:167-213);
@@ -24,10 +25,12 @@ tested a leaf for the whole packet once any lane wanted it); either can
 change a result only through an exact tie between two triangles, or a ray
 that grazes a box edge in float arithmetic.
 
-`wide_walk` launches csrc/wide.cu for CUDA tensors and runs
-`wide_walk_plain`, the same per-ray walk in plain PyTorch (all lanes in
-lockstep, each with its own stack), for CPU tensors. `packet_rows`, a TPU
-block size with no meaning for a per-thread walk, is not ported.
+`wide_walk` launches csrc/wide.cu for CUDA tensors, which reads the node
+table of scene/types.py pack_wide_nodes (scene.nodes8_c), and runs
+`wide_walk_plain`, the same per-ray walk in plain PyTorch over the packed
+tables (all lanes in lockstep, each with its own stack), for CPU tensors.
+`packet_rows`, a TPU block size with no meaning for a per-ray walk, is not
+ported.
 """
 from __future__ import annotations
 
@@ -256,9 +259,12 @@ def wide_walk_plain(nodes8_f, nodes8_i, tris8, root, ox, oy, oz, dx, dy,
 
 
 def wide_walk(nodes8_f, nodes8_i, tris8, root, ox, oy, oz, dx, dy, dz,
-              act, tb, variant: str = VARIANT, cull: bool = False):
+              act, tb, variant: str = VARIANT, cull: bool = False,
+              nodes8_c=None):
     """(t, nx, ny, nz, mat) per lane: csrc/wide.cu (pt_wide_push or
-    pt_wide_mask by `variant`) on CUDA tensors, the plain version on CPU
+    pt_wide_mask by `variant`) on CUDA tensors, which reads `nodes8_c`
+    (pack_wide_nodes(nodes8_f, nodes8_i), scene.nodes8_c) and must be given
+    it; the plain version, which reads nodes8_f / nodes8_i, on CPU
     tensors."""
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r}: expected one of {VARIANTS}")
@@ -268,30 +274,47 @@ def wide_walk(nodes8_f, nodes8_i, tris8, root, ox, oy, oz, dx, dy, dz,
         return wide_walk_plain(nodes8_f, nodes8_i, tris8, root, ox, oy, oz,
                                dx, dy, dz, act, tb, variant=variant,
                                cull=cull)
+    name = "wide_" + variant
+    if nodes8_c is None:
+        raise ValueError(f"{name}: CUDA tensors need nodes8_c "
+                         "(scene.nodes8_c, scene/types.py pack_wide_nodes)")
     n = ox.shape[0]
     dev = kernels.check(
-        "wide_" + variant, n, nodes_f32=nodes8_f, nodes_i32=nodes8_i,
-        tris_f32=tris8, ray_ox_f32=ox, ray_oy_f32=oy, ray_oz_f32=oz,
-        ray_dx_f32=dx, ray_dy_f32=dy, ray_dz_f32=dz, ray_act_i32=act,
-        ray_tb_f32=tb, one_root_i32=root)
+        name, n, nodes_f32=nodes8_f, nodes_i32=nodes8_i, tris_f32=tris8,
+        ray_ox_f32=ox, ray_oy_f32=oy, ray_oz_f32=oz, ray_dx_f32=dx,
+        ray_dy_f32=dy, ray_dz_f32=dz, ray_act_i32=act, ray_tb_f32=tb,
+        one_root_i32=root)
+    kernels.check(name, n, cols=8, nodes_c_i32=nodes8_c, ray_ox_f32=ox)
     if (nodes8_f.shape != nodes8_i.shape or nodes8_f.shape[0] % 8
             or tris8.shape[0] % 8):
         raise ValueError(
-            f"wide_{variant}: nodes8 {tuple(nodes8_f.shape)} / "
+            f"{name}: nodes8 {tuple(nodes8_f.shape)} / "
             f"{tuple(nodes8_i.shape)} and tris8 {tuple(tris8.shape)} must "
             "be whole (8, 128) blocks")
     n_wide = nodes8_f.shape[0] // 8 * WIDE_NODES_PER_BLOCK
+    if nodes8_c.shape != (n_wide * 8, 8):
+        raise ValueError(f"{name}: nodes8_c {tuple(nodes8_c.shape)} is not "
+                         f"the [{n_wide * 8}, 8] table of these nodes8")
+    if nodes8_c.data_ptr() % 16 or tris8.data_ptr() % 16:
+        raise ValueError(f"{name}: nodes8_c and tris8 must be 16-byte "
+                         "aligned")
     if variant == "mask" and n_wide >= MAX_MASK_NODES:
         raise ValueError("wide forest too large for packed mask entries")
     n_groups = tris8.shape[0] // 8 * WIDE_GROUPS_PER_BLOCK
-    t, nx, ny, nz, mat = kernels.hit_outputs(n, ox.device)
-    if n:
-        p = kernels.ptr
-        extra = (int(cull),) if variant == "push" else ()
-        kernels.launch("wide_" + variant, dev, p(nodes8_f), p(nodes8_i),
-                       n_wide, p(tris8), n_groups, p(root), p(ox), p(oy),
-                       p(oz), p(dx), p(dy), p(dz), p(act), p(tb), *extra,
-                       p(t), p(nx), p(ny), p(nz), p(mat), n)
+    if not n:
+        return kernels.hit_outputs(0, dev)
+    # two allocations: the four float outputs; mat, then the kernel's
+    # scratch ([0] the active count, [1] the walk's fetch counter, [2:] the
+    # list)
+    t, nx, ny, nz = torch.empty((4, n), device=dev).unbind(0)
+    ints = torch.empty(2 * n + 2, dtype=torch.int32, device=dev)
+    mat = ints[:n]
+    extra = (int(cull),) if variant == "push" else ()
+    kernels.launch(name, dev, nodes8_c.data_ptr(), n_wide, tris8.data_ptr(),
+                   n_groups, *(a.data_ptr() for a in (
+                       root, ox, oy, oz, dx, dy, dz, act, tb)), *extra,
+                   *(a.data_ptr() for a in (t, nx, ny, nz, mat)),
+                   ints.data_ptr() + 4 * n, n)
     return t, nx, ny, nz, mat
 
 
@@ -320,7 +343,7 @@ def mesh_intersect_wide(scene, origin: Vec3, direction: Vec3, active=None,
     t, nx, ny, nz, mat = wide_walk(scene.nodes8_f, scene.nodes8_i,
                                    scene.tris8, scene.wide_root, *o, *d,
                                    act, tb, variant=variant or VARIANT,
-                                   cull=cull)
+                                   cull=cull, nodes8_c=scene.nodes8_c)
     return t, Vec3(nx, ny, nz), mat
 
 

@@ -26,7 +26,7 @@ from .bvh import align_leaves, build_bvh
 from .bvh8 import build_wide_bvh, concat_wide
 from .types import (CUBE, MESH, SPHERE, BVHArrays, CameraArrays, GeomArrays,
                     MaterialArrays, RenderSettings, SceneArrays,
-                    make_scene_arrays, pack_tris_brute)
+                    make_scene_arrays, pack_tris_brute, pack_wide_nodes)
 
 # tri count above which a mesh gets fat 288-tri treelets (48 rows)
 BIG_MESH_TRIS = 24000
@@ -316,6 +316,9 @@ def scene_from_jax_arrays(arrays: dict, device) -> SceneArrays:
         tris_brute=torch.as_tensor(brute, device=device),
         nodes8_f=t("nodes8_f"), nodes8_i=t("nodes8_i"), tris8=t("tris8"),
         wide_root=t("wide_root"),
+        nodes8_c=torch.as_tensor(pack_wide_nodes(
+            np.asarray(arrays["nodes8_f"]), np.asarray(arrays["nodes8_i"])),
+            device=device),
         tre_rows=int(np.asarray(arrays["treelet_rows"]).shape[0]),
         mesh_roots=tuple(int(r) for g, r in zip(gtype, roots) if g == MESH),
         # the JAX placeholder forest is all zeros: no slot of any kind

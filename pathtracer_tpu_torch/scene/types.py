@@ -36,6 +36,7 @@ WIDE_NODES_PER_BLOCK = 16  # wide nodes per (8, 128) table block: node j's
 #                            field f at lane j*8+f, child c at row c
 WIDE_GROUPS_PER_BLOCK = 6  # 8-tri groups per (8, 128) tris8 block: group g
 #                            at lanes (g%6)*20..+19, triangle t at row t
+WIDE_LEAF_TAG = 1 << 30    # push-stack code of a leaf: TAG + group*4 + count
 MXU_TRI_TILE = 512    # triangles per brute-force tile (table padding unit)
 MXU_NFEAT = 16        # per-ray feature vector [d, o, o x d, 1] padded 10->16
 # the features each linear form (a, un, vn, tn) of pack_tris_mxu has a
@@ -128,6 +129,7 @@ class SceneArrays:
     nodes8_i: torch.Tensor       # [Wb*8, 128] i32 child records
     tris8: torch.Tensor          # [Gb*8, 128] f32 8-tri groups
     wide_root: torch.Tensor      # [1] i32
+    nodes8_c: torch.Tensor       # [Wb*16*8, 8] i32 (pack_wide_nodes)
     # host-side statics: the rows-per-treelet bound (the JAX package carries
     # it as the shape of `treelet_rows`), the BVH root of every mesh geom,
     # whether nodes8_* / tris8 hold a built forest (not the placeholder), and
@@ -421,6 +423,45 @@ def pack_wide_tables(wide_nodes, tris8: dict):
     return nf, ni, packed
 
 
+def pack_wide_nodes(nodes8_f, nodes8_i):
+    """The 8-wide walk kernel's node table (csrc/wide.cu) from
+    pack_wide_tables' nodes8_f / nodes8_i: [W*8, 8] int32, row node*8 +
+    slot, one 32-byte record a child slot:
+
+      words 0-5  its box (min xyz, max xyz): the float32 bits of nodes8_f;
+      word 6     its push-stack code: WIDE_LEAF_TAG + a*4 + b for a leaf
+                 (kind 2), else a;
+      word 7     kind | axis << 2, with the node's sort axis (slot 0's
+                 field) as the walk reads it: 0 (x), 1 (y), else 2 (z).
+
+    The walk takes a leaf's first group and group count back out of word
+    6, so this raises on a forest whose records the code cannot hold: a
+    kind other than 0, 1 or 2, or a leaf without 0 <= a < 2^28 and
+    0 <= b <= 3 (scene/bvh8.py builds b <= MAX_WIDE_GROUPS = 2). Returns a
+    numpy array.
+    """
+    per = WIDE_NODES_PER_BLOCK
+
+    def records(a, dtype):
+        return np.ascontiguousarray(a, dtype).reshape(-1, 8, per, 8).transpose(
+            0, 2, 1, 3).reshape(-1, 8, 8)
+    f = records(nodes8_f, np.float32)
+    kind, a, b, axis = records(nodes8_i, np.int32)[..., :4].astype(
+        np.int64).transpose(2, 0, 1)
+    leaf = kind == 2
+    if (((kind < 0) | (kind > 2)).any()
+            or (leaf & ((a < 0) | (a >= 1 << 28) | (b < 0) | (b > 3))).any()):
+        raise ValueError("pack_wide_nodes: a child record the walk's leaf "
+                         "code cannot hold (kind not 0/1/2, or a leaf with "
+                         "a outside [0, 2^28) or b outside [0, 3])")
+    ax = np.where(axis[:, :1] == 0, 0, np.where(axis[:, :1] == 1, 1, 2))
+    out = np.empty(f.shape, np.int32)
+    out[..., :6] = f[..., :6].view(np.int32)
+    out[..., 6] = np.where(leaf, WIDE_LEAF_TAG + a * 4 + b, a)
+    out[..., 7] = kind | (ax << 2)
+    return out.reshape(-1, 8)
+
+
 def pack_tris_mxu(tris: dict):
     """Coefficient tables of the brute-force intersector (ops/brute.py), in
     the JAX layout (pathtracer_tpu/scene/types.py:374).
@@ -626,6 +667,7 @@ def make_scene_arrays(geom_list, material_list, bvh_nodes, bvh_tris, camera,
         tris_mxu_c=f32(mxu_c), tris_mxu_n=f32(mxu_n), tris_brute=f32(brute),
         nodes8_f=f32(nodes8_f), nodes8_i=i32(nodes8_i), tris8=f32(tris8),
         wide_root=i32([wide_root_idx]),
+        nodes8_c=i32(pack_wide_nodes(nodes8_f, nodes8_i)),
         tre_rows=int(tre_rows or MAX_TRE_ROWS),
         mesh_roots=tuple(int(x.get("root_node", -1)) for x in geom_list
                          if x["type"] == MESH),

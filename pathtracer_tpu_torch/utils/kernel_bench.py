@@ -1,7 +1,7 @@
-"""Times of the cull, stream, packet-walk, scan and brute-force kernels
-(B1-B4, B7) on the main path's inputs, by CUDA events and by
-torch.profiler's device time, for comparing two checkouts of the port on
-one card:
+"""Times of the cull, stream, packet-walk, scan, 8-wide walk and
+brute-force kernels (B1-B7) on the inputs of their paths, by CUDA events
+and by torch.profiler's device time, for comparing two checkouts of the
+port on one card:
 
     python pathtracer_tpu_torch/utils/kernel_bench.py [--root DIR] \
         [--json FILE]
@@ -15,13 +15,19 @@ each on its pass's inputs); the bounce-1 pass-1 cull and stream of
 animal.json at 800x800 (48-row treelets); the packet walk's binned-fallback
 call on the teapot pool and the walk over every live lane (bvh_impl
 "pallas"); the scan on the teapot pool's int32 liveness mask and on 2^24 + 3
-random bits, beside torch.cumsum; the brute-force kernel (through
-mesh_intersect_brute, whose signature every checkout shares) on every lane
-of the teapot and animal bounce-1 pools. Each kernel's outputs are checked
-against its plain version first, floats by their bits (brute: the whole
-teapot pool and the first BRUTE_CHECK_LANES animal lanes; the plain version
-over every animal lane takes too long). Prints one JSON object, with the
-card's name and power limit.
+random bits, beside torch.cumsum; the 8-wide walk (push, push with the
+cull, mask), each input the call that the path makes (captured by
+wrapping ops/wide.py wide_walk, so every checkout's own arguments are
+replayed): the teapot's camera rays and bounce-1 pool through bvh_impl
+"wide", the bounce-1 pool through "wide_nosort" and through the binned
+intersector with the wide fallback, and animal's bounce-1 pool through
+"wide"; the brute-force kernel (through mesh_intersect_brute, whose
+signature every checkout shares) on every lane of the teapot and animal
+bounce-1 pools. Each kernel's outputs are checked against its plain
+version first, floats by their bits (brute: the whole teapot pool and the
+first BRUTE_CHECK_LANES animal lanes; the plain version over every animal
+lane takes too long). Prints one JSON object, with the card's name and
+power limit.
 """
 from __future__ import annotations
 
@@ -36,6 +42,11 @@ from unittest import mock
 import numpy as np
 
 FLT_MAX = 3.402823466e38
+# the bound of an 8-wide walk call (chip_smoke.py's rates and operation
+# counts): the larger of its bytes over 3.35 TB/s and its FP32 operations
+# (25 a slab test, 55 a triangle test) over 67 TFLOP/s
+PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
+OPS_BOX, OPS_TRI = 25, 55
 BRUTE_CHECK_LANES = {"teapot": None, "animal": 65536}   # None: every lane
 PAD_SPINS = 16       # spin kernels on each side of a profiled window
 SPIN_CYCLES = 1000   # clock cycles a spin kernel waits
@@ -211,6 +222,67 @@ def bench_brute(scene, state, check_lanes) -> dict:
     return rec
 
 
+def wide_calls(name, scene, settings, state, live) -> dict:
+    """{input: (args, kwargs)} of the 8-wide walk call that each path makes
+    on `state`'s rays: bvh_impl "wide" (and, for the teapot, "wide_nosort"
+    and the binned intersector with the wide fallback)."""
+    from pathtracer_tpu_torch.ops import binned, wide
+    from pathtracer_tpu_torch.ops.intersect import intersect_scene
+    paths = {"wide": ("wide", "packet")}
+    if name == "teapot":
+        paths.update(nosort=("wide_nosort", "packet"),
+                     fallback=("binned", "wide"))
+    calls = {}
+    for key, (impl, fallback) in paths.items():
+        got = []
+
+        def recording(*args, **kwargs):
+            got.append((args, kwargs))
+            return walk(*args, **kwargs)
+        walk = wide.wide_walk
+        with mock.patch.object(wide, "wide_walk", recording), \
+                mock.patch.object(binned, "FALLBACK_IMPL", fallback):
+            intersect_scene(scene, settings.geom_types, state.origin,
+                            state.direction, bvh_impl=impl, active=live)
+        calls[key] = got[0]
+    return calls
+
+
+def bench_wide(args, kwargs) -> dict:
+    """One 8-wide walk call with push, push with the cull and mask: each
+    bit-equal to the plain walk of its variant, then timed; with the box
+    and triangle tests the walk makes and its bound (bytes: 32 a child slot
+    of the node table, the triangle table, the ray planes of the active
+    lanes, the active mask and the outputs of every lane)."""
+    from pathtracer_tpu_torch.ops import wide
+    counts = {}
+    plain = {v: wide.wide_walk_plain(*args, variant=v,
+                                     counts=counts if v == "push" else None)
+             for v in wide.VARIANTS}
+    if not same_bits(plain["push"], plain["mask"]):
+        raise AssertionError("wide: the plain push and mask walks differ")
+    n, active = args[4].shape[0], int((args[10] > 0).sum())
+    n_bytes = (args[0].shape[0] * 2 * 8 * 32 + 4 * args[2].numel()
+               + 28 * active + 24 * n)
+    ops = OPS_BOX * counts["box_tests"] + OPS_TRI * counts["tri_tests"]
+    rec = {"lanes": n, "active": active, **counts, "bytes": n_bytes,
+           "ops": ops,
+           "bound_ms": 1e3 * max(n_bytes / PEAK_BYTES, ops / PEAK_FLOPS)}
+    for label, kw in (("push", {"variant": "push"}),
+                      ("push_cull", {"variant": "push", "cull": True}),
+                      ("mask", {"variant": "mask"})):
+        kw = {**kwargs, **kw}
+
+        def call():
+            return wide.wide_walk(*args, **kw)
+        if not same_bits(call(), plain[kw["variant"]]):
+            raise AssertionError(f"wide {label}: differs from plain")
+        rec[label] = timed(call)
+        rec[label]["host_us"] = host_us(call, 200)
+    rec["hits"] = int((plain["push"][0] > 0).sum())
+    return rec
+
+
 def bench() -> dict:
     import torch
     from pathtracer_tpu_torch import load_scene
@@ -226,9 +298,23 @@ def bench() -> dict:
     with torch.inference_mode():
         for name in ("teapot", "animal"):
             scene, settings = load_scene(f"scenes/{name}.json", dev,
-                                         brute_tables=True)
+                                         brute_tables=True, wide_tables=True)
+            if name == "teapot":
+                from pathtracer_tpu_torch.engine import wavefront
+                from pathtracer_tpu_torch.ops import rng
+                camera = wavefront.generate_paths(scene, settings,
+                                                  rng.IterationRng(
+                                                      0, 1, pixel_map=settings
+                                                      .pixel_map()))
+                args, kwargs = wide_calls(
+                    name, scene, settings, camera,
+                    camera.remaining_bounces > 0)["wide"]
+                out["wide_teapot_camera"] = bench_wide(args, kwargs)
             state, live = bounce1(scene, settings, dev)
             pools[name] = scene, state
+            for key, (args, kwargs) in wide_calls(name, scene, settings,
+                                                  state, live).items():
+                out[f"wide_{name}_{key}"] = bench_wide(args, kwargs)
             calls = binned_calls(scene, settings, state, live)
             if name == "teapot":
                 teapot = scene, state, live, calls["packet"][0]

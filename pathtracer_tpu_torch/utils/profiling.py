@@ -3,7 +3,8 @@ pathtracer_tpu/utils/profiling.py):
 
     python -m pathtracer_tpu_torch.utils.profiling scenes/teapot.json \
         [--iters 3] [--res R] [--depth D] [--json out.json] [--device cuda] \
-        [--bvh wide] [--mode masked|sorted|tiled|persistent] [--tile 16000]
+        [--bvh wide] [--fallback packet|wide] \
+        [--mode masked|sorted|tiled|persistent] [--tile 16000]
 
 Three measurements of whole iterations (`render_iteration` with early exit,
 as `render` runs it, in the wavefront mode `--mode`; or, for
@@ -69,6 +70,7 @@ KINDS = (
     ("stream_kernel", "stream kernel"),
     ("packet_kernel", "packet kernel"),
     ("scan_kernel", "scan kernel"),
+    ("wide_compact_kernel", "wide compaction kernel"),
     ("wide_push_kernel", "wide push kernel"),
     ("wide_mask_kernel", "wide mask kernel"),
     ("brute_kernel", "brute kernel"),
@@ -201,19 +203,25 @@ def stage_times(scene, settings, iters: int = 3, seed: int = 0,
 
 def report(scene_file: str, device, iters: int = 3, seed: int = 0,
            overrides: dict | None = None, bvh: str | None = None,
-           mode: str = "masked", tile: int = 16000) -> dict:
+           mode: str = "masked", tile: int = 16000,
+           fallback: str | None = None) -> dict:
     """All three measurements of one scene on `device`, through the mesh
-    intersector `bvh` (None: the loader's pick), in engine mode `mode`
-    (`tile`: the tiled mode's compact_tile)."""
+    intersector `bvh` (None: the loader's pick), with the binned
+    intersector's exact finish `fallback` ("packet" or "wide"; None:
+    binned.FALLBACK_IMPL), in engine mode `mode` (`tile`: the tiled mode's
+    compact_tile)."""
     from ..scene.loader import load_scene
+    fallback = fallback or binned.FALLBACK_IMPL
     scene, settings = load_scene(scene_file, device, overrides=overrides,
-                                 bvh_impl=bvh)
+                                 bvh_impl=bvh,
+                                 wide_tables=fallback == "wide")
     settings = mode_settings(settings, mode, tile)
     args = (scene, settings, iters, seed, mode)
-    with torch.inference_mode():
+    with torch.inference_mode(), mock.patch.object(binned, "FALLBACK_IMPL",
+                                                   fallback):
         return {
             "scene": scene_file, "device": str(scene.device),
-            "bvh": settings.bvh_impl, "mode": mode,
+            "bvh": settings.bvh_impl, "fallback": fallback, "mode": mode,
             "res": [settings.width, settings.height],
             "depth": settings.trace_depth, "iters": iters,
             "frame_ms": frame_ms(*args),
@@ -224,7 +232,8 @@ def report(scene_file: str, device, iters: int = 3, seed: int = 0,
 
 def format_report(rep: dict) -> str:
     lines = [f"{rep['scene']} {rep['res'][0]}x{rep['res'][1]} "
-             f"d{rep['depth']} bvh {rep['bvh']} {rep['mode']} on "
+             f"d{rep['depth']} bvh {rep['bvh']} (fallback "
+             f"{rep['fallback']}) {rep['mode']} on "
              f"{rep['device']}, "
              f"{rep['iters']} iterations:"
              f" untraced {rep['frame_ms']:.2f} ms/frame"]
@@ -260,6 +269,9 @@ def main(argv=None) -> None:
                     help="torch device to profile on (default cuda)")
     ap.add_argument("--bvh", choices=intersect.BVH_IMPLS, default=None,
                     help="mesh intersector (default: the loader's pick)")
+    ap.add_argument("--fallback", choices=("packet", "wide"), default=None,
+                    help="the binned intersector's exact finish (default: "
+                         "binned.FALLBACK_IMPL)")
     ap.add_argument("--mode", choices=MODES, default="masked",
                     help="engine mode (default masked)")
     ap.add_argument("--tile", type=int, default=16000,
@@ -275,7 +287,7 @@ def main(argv=None) -> None:
     reps = []
     for s in args.scenes:
         rep = report(s, device, args.iters, args.seed, overrides or None,
-                     args.bvh, args.mode, args.tile)
+                     args.bvh, args.mode, args.tile, args.fallback)
         print(format_report(rep), flush=True)
         reps.append(rep)
     if args.json:

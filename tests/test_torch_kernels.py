@@ -21,7 +21,9 @@ from pathtracer_tpu_torch import load_scene
 from pathtracer_tpu_torch.ops import (binned, brute, bvh_packet, kernels,
                                       scan, wide)
 from pathtracer_tpu_torch.scene.fixtures import scene_path
+from pathtracer_tpu_torch.scene.types import pack_wide_nodes, pack_wide_tables
 from pathtracer_tpu_torch.utils.vec import Vec3
+from torch_wide_scenes import SCENES
 
 torch.set_num_threads(2)
 
@@ -338,19 +340,32 @@ def test_wrappers_reject_bad_inputs():
                                scene.tris_packed, 0, *o, *d, act,
                                bound[:100])
     tabs = (scene.nodes8_f, scene.nodes8_i, scene.tris8)
+    c_tab = {"nodes8_c": scene.nodes8_c}
+    shifted = torch.empty(scene.nodes8_c.numel() + 1, dtype=torch.int32,
+                          device="cuda")[1:].view(scene.nodes8_c.shape)
+    shifted.copy_(scene.nodes8_c)
     for variant in wide.VARIANTS:
         with pytest.raises(TypeError):     # an f32 root
             wide.wide_walk(*tabs, scene.wide_root.float(), *o, *d, act,
-                           bound, variant=variant)
+                           bound, variant=variant, **c_tab)
         with pytest.raises(ValueError):    # a root of two values
             wide.wide_walk(*tabs, scene.wide_root.repeat(2), *o, *d, act,
-                           bound, variant=variant)
+                           bound, variant=variant, **c_tab)
         with pytest.raises(ValueError):    # a CPU plane beside CUDA rays
             wide.wide_walk(*tabs, scene.wide_root, *o, *d, act.cpu(),
-                           bound, variant=variant)
+                           bound, variant=variant, **c_tab)
+        with pytest.raises(ValueError):    # no kernel node table
+            wide.wide_walk(*tabs, scene.wide_root, *o, *d, act, bound,
+                           variant=variant)
+        with pytest.raises(ValueError):    # the node table of fewer nodes
+            wide.wide_walk(*tabs, scene.wide_root, *o, *d, act, bound,
+                           variant=variant, nodes8_c=scene.nodes8_c[:128])
+        with pytest.raises(ValueError):    # not 16-byte aligned
+            wide.wide_walk(*tabs, scene.wide_root, *o, *d, act, bound,
+                           variant=variant, nodes8_c=shifted)
     with pytest.raises(ValueError):        # tables cut mid-block
         wide.wide_walk(scene.nodes8_f[:4], scene.nodes8_i[:4], scene.tris8,
-                       scene.wide_root, *o, *d, act, bound)
+                       scene.wide_root, *o, *d, act, bound, **c_tab)
     b_tabs = (scene.tris_mxu_c, scene.tris_mxu_n)
     with pytest.raises(ValueError):        # a 128-wide compact table
         brute.brute(*b_tabs, scene.nodes8_f, scene.brute_tris, *o, *d)
@@ -389,25 +404,66 @@ def test_kernels_match_plain_versions_on_the_card(name):
     torch.cuda.synchronize()
 
 
+def _wide_kernels_match(args, nodes8_c, min_hits=0):
+    """Push, push with the cull and mask on the card against the plain walk,
+    every output bit for bit, each one launch; the three equal. Returns the
+    push outputs."""
+    before = dict(kernels.LAUNCHES)
+    push = wide.wide_walk(*args, nodes8_c=nodes8_c)
+    assert int((push[0] > 0).sum()) >= min_hits
+    for kw in ({"variant": "push"}, {"variant": "push", "cull": True},
+               {"variant": "mask"}):
+        got = wide.wide_walk(*args, nodes8_c=nodes8_c, **kw)
+        _same_bits(got, wide.wide_walk_plain(*args, **kw))
+        _same_bits(got, push)
+    assert kernels.LAUNCHES["wide_push"] == before["wide_push"] + 3
+    assert kernels.LAUNCHES["wide_mask"] == before["wide_mask"] + 1
+    return push
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["teapot", "animal"])
 def test_wide_kernels_match_plain_versions_on_the_card(name):
     """Both stack disciplines (and the push cull) against the plain walk:
     t and integers bit for bit, normals too (-fmad=false); push and mask
-    equal."""
+    equal. Also on a pool with no active lane, a pool of one lane, one
+    whose length is no multiple of 32, and one with 1.3% of its lanes
+    active (as the binned fallback's)."""
     _need_cuda()
     scene, _ = load_scene(scene_path(name), "cuda", wide_tables=True)
     o, d, bound, act = _planes(65536, 1, "cuda")
-    args = (scene.nodes8_f, scene.nodes8_i, scene.tris8, scene.wide_root,
-            *o, *d, act, bound)
-    push = wide.wide_walk(*args)
-    assert int((push[0] > 0).sum()) > 100
-    for kw in ({"variant": "push"}, {"variant": "push", "cull": True},
-               {"variant": "mask"}):
-        got = wide.wide_walk(*args, **kw)
-        for a, b, c in zip(got, wide.wide_walk_plain(*args, **kw), push):
-            assert torch.equal(a, b), kw
-            assert torch.equal(a, c), kw
+    tabs = (scene.nodes8_f, scene.nodes8_i, scene.tris8, scene.wide_root)
+    _wide_kernels_match((*tabs, *o, *d, act, bound), scene.nodes8_c, 100)
+    sparse = (torch.rand(65536, generator=torch.Generator().manual_seed(3))
+              < 0.013).to(torch.int32).cuda()
+    pools = {"none active": (65536, torch.zeros_like(act)),
+             "one lane": (1, act[:1] * 0 + 1),
+             "1000 lanes": (1000, act[:1000]),
+             "1.3% active": (65536, sparse)}
+    for label, (n, a) in pools.items():
+        got = _wide_kernels_match(
+            (*tabs, *(c[:n] for c in o), *(c[:n] for c in d), a, bound[:n]),
+            scene.nodes8_c)
+        if label == "none active":
+            assert (got[0] == -1).all() and (got[4] == -1).all(), label
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_wide_kernels_keep_the_tie_rules_on_the_card(name):
+    """The crafted ties of tests/torch_wide_scenes.py: the kernels keep the
+    triangle each tie rule names, bit for bit with the plain walk."""
+    _need_cuda()
+    nodes, tris, root, o, d, mats = SCENES[name]()
+    nf, ni, t8 = pack_wide_tables(nodes, tris)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    n = o.shape[1]
+    args = (t(nf), t(ni), t(t8), t(np.array([root], np.int32)),
+            *map(t, o), *map(t, d), t(np.ones(n, np.int32)),
+            t(np.full(n, FLT_MAX, np.float32)))
+    push = _wide_kernels_match(args, t(pack_wide_nodes(nf, ni)))
+    assert (push[4].cpu().numpy() == mats).all()
     torch.cuda.synchronize()
 
 

@@ -19,6 +19,10 @@ torch.set_num_threads(2)
      "wide push kernel"),
     ("_ZN39_GLOBAL__N__75d827b5_7_wide_cu_e1e0c9de16wide_mask_kernelEPKfPKi",
      "wide mask kernel"),
+    ("void (anonymous namespace)::wide_push_kernel<false>("
+     "(anonymous namespace)::Args)", "wide push kernel"),
+    ("void (anonymous namespace)::wide_compact_kernel("
+     "(anonymous namespace)::Args, int)", "wide compaction kernel"),
     ("_ZN40_GLOBAL__N__a5541915_8_brute_cu_pt_brute12brute_kernelEPKfS1_i",
      "brute kernel"),
     ("_ZN12_GLOBAL__N_113stream_kernelEPKiiPKfiiS3_", "stream kernel"),
@@ -91,6 +95,18 @@ def test_other_mesh_paths_report_their_stage(bvh, stage):
     stages = rep["stage_times"]["stages"]
     assert stages[stage]["calls"] == stages["intersect"]["calls"]
     assert "intersect.mesh_binned" not in stages
+
+
+def test_binned_with_the_wide_fallback_reports_its_stage():
+    """--fallback wide finishes the binned passes with the 8-wide walk."""
+    rep = profiling.report(scene_path("teapot"), "cpu", iters=1,
+                           overrides={"RES": [16, 16], "DEPTH": 2},
+                           fallback="wide")
+    assert rep["bvh"] == "binned" and rep["fallback"] == "wide"
+    stages = rep["stage_times"]["stages"]
+    assert stages["mesh.wide"]["calls"] >= 1
+    assert "mesh.packet" not in stages
+    assert profiling.binned.FALLBACK_IMPL == "packet"
 
 
 @pytest.mark.parametrize("mode", ["sorted", "tiled", "persistent"])

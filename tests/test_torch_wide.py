@@ -18,12 +18,18 @@ that count at zero. Tolerances, and why:
   - normals: rtol 1e-5, atol 1e-6 (tests/test_wide.py:52-58): JAX
     normalizes with lax.rsqrt, the port with 1/sqrt;
   - the port's push and mask stacks, with and without the cull, and the
-    sorted and unsorted wrappers: bit for bit.
+    sorted and unsorted wrappers: bit for bit;
+  - the crafted tie scenes (tests/torch_wide_scenes.py), whose arithmetic
+    is exact: t and materials bit for bit against JAX, and the material
+    each tie rule keeps;
+  - the kernel's node table (pack_wide_nodes) against the packed tables:
+    bit for bit.
 """
 import dataclasses
 import os
 import subprocess
 import sys
+from typing import NamedTuple
 
 import jax.numpy as jnp
 import numpy as np
@@ -35,13 +41,17 @@ from pathtracer_tpu import render as jax_render
 from pathtracer_tpu.ops import binned as j_binned
 from pathtracer_tpu.ops.intersect import intersect_scene as j_intersect
 from pathtracer_tpu.ops.wide import mesh_intersect_wide as j_wide
+from pathtracer_tpu.scene.types import pack_wide_tables as j_pack_wide_tables
 from pathtracer_tpu.utils.vec import Vec3 as JVec3
 from pathtracer_tpu_torch import load_scene, render
 from pathtracer_tpu_torch.ops import binned, bvh_packet, wide
 from pathtracer_tpu_torch.ops.intersect import intersect_scene
 from pathtracer_tpu_torch.scene.fixtures import REPO_ROOT, scene_path
 from pathtracer_tpu_torch.scene.loader import scene_from_jax_arrays
+from pathtracer_tpu_torch.scene.types import (WIDE_LEAF_TAG, pack_wide_nodes,
+                                              pack_wide_tables)
 from pathtracer_tpu_torch.utils.vec import Vec3
+from torch_wide_scenes import SCENES
 
 torch.set_num_threads(2)
 
@@ -336,3 +346,81 @@ def test_wide_render_matches_jax():
     assert np.isfinite(img_p).all() and img_p.max() > 0
     differs = np.abs(img_p - img_j).max(axis=-1) > 1e-4
     assert differs.mean() < 0.01, differs.mean()
+
+
+def _bits(t):
+    """A float32 tensor's bits (torch.equal takes -0 == +0)."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+class _WideTables(NamedTuple):
+    """The fields of a JAX SceneArrays that its wide walk reads."""
+    nodes8_f: jnp.ndarray
+    nodes8_i: jnp.ndarray
+    tris8: jnp.ndarray
+    wide_root: jnp.ndarray
+
+
+@pytest.mark.parametrize("variant", wide.VARIANTS)
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_wide_tie_rules_match_jax(name, variant):
+    """Exact ties and a grazed shared box face (tests/torch_wide_scenes.py):
+    the plain walk keeps the triangle that the tie rule names (first of
+    equal t in a group, the first group of a leaf, the leaf visited first
+    along the node's axis by the ray's own direction sign), as the JAX walk
+    does, bit for bit; push, push with the cull and mask agree."""
+    nodes, tris, root, o, d, mats = SCENES[name]()
+    n = o.shape[1]
+    act = np.ones(n, bool)
+    tb = np.full(n, FLT_MAX, np.float32)
+    t = torch.from_numpy
+    args = (*map(t, pack_wide_tables(nodes, tris)),
+            torch.tensor([root], dtype=torch.int32), *map(t, o), *map(t, d),
+            t(act.astype(np.int32)), t(tb))
+    port = wide.wide_walk_plain(*args, variant=variant)
+    np.testing.assert_array_equal(port[4].numpy(), mats)
+    j_tabs = _WideTables(*j_pack_wide_tables(nodes, tris),
+                         jnp.asarray([root], jnp.int32))
+    ref = _jax_wide(j_tabs, o, d, act, tb, variant)
+    _assert_hits_match(port, ref, act, t_exact=True)
+    for kw in ({"variant": "push"}, {"variant": "push", "cull": True},
+               {"variant": "mask"}):
+        for a, b in zip(wide.wide_walk_plain(*args, **kw), port):
+            assert torch.equal(_bits(a), _bits(b)), kw
+
+
+@pytest.mark.parametrize("name", ["teapot", "animal"])
+def test_pack_wide_nodes_matches_the_records(name):
+    """The kernel's node table holds, bit for bit, what the plain walk reads
+    from the packed tables (ops/wide.py _records): each slot's box, the
+    push code of its child, its kind and its node's sort axis."""
+    scene, _ = load_scene(scene_path(name), "cpu", wide_tables=True)
+    nf, ni, _ = wide._records(scene.nodes8_f, scene.nodes8_i, scene.tris8)
+    table = scene.nodes8_c.reshape(-1, 8, 8)
+    assert table.shape[0] == nf.shape[0] > 100
+    assert torch.equal(table[..., :6], nf[..., :6].contiguous().view(
+        torch.int32))
+    kind, a, b, axis = ni.long().unbind(-1)
+    assert int((kind == 2).sum()) > 100
+    code = torch.where(kind == 2, WIDE_LEAF_TAG + a * 4 + b, a)
+    assert torch.equal(table[..., 6].long(), code)
+    assert torch.equal(table[..., 7] & 3, kind.int())
+    ax = axis[:, :1].clamp(max=2).expand(-1, 8)
+    assert torch.equal((table[..., 7] >> 2).long(), ax)
+    assert torch.equal(scene.nodes8_c, torch.from_numpy(
+        pack_wide_nodes(scene.nodes8_f.numpy(), scene.nodes8_i.numpy())))
+
+
+@pytest.mark.parametrize("record", [(3, 1, 0), (2, 0, 4), (2, -1, 1),
+                                    (2, 1 << 28, 1)])
+def test_pack_wide_nodes_rejects_records_it_cannot_hold(record):
+    """A kind outside 0..2, or a leaf whose first group or group count the
+    leaf code cannot hold, raises instead of packing a code the kernel
+    would read as another child."""
+    nodes, tris, _, _, _, _ = SCENES["two_leaves"]()
+    nf, ni, _ = pack_wide_tables(nodes, tris)
+    ni[1, 0:3] = record            # node 0, slot 1: (kind, a, b)
+    with pytest.raises(ValueError, match="cannot hold"):
+        pack_wide_nodes(nf, ni)
+    ni[1, 0:3] = (2, 1, 1)
+    pack_wide_nodes(nf, ni)
