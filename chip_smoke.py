@@ -54,7 +54,26 @@ Phases, each fatal on failure:
      frame), teapot must launch its mesh kernels, every image finite and
      not all zero;
  12. teapot and Cornell 64x64 d4: the sorted, tiled and persistent images
-     must each agree with the masked one.
+     must each agree with the masked one;
+ 13. gradients, Cornell 800x800 d8: the forward image of render_iteration
+     with the albedo requiring grad must equal its image under inference
+     mode bit for bit; then 5 steps of tools/fit_albedo.albedo_fit_step
+     from the albedo perturbed as that tool does, against the target of
+     iteration 1, seed 0: the loss after them must be below the loss at
+     step 1, the albedo MAE below its start; ms a step (forward and
+     backward) beside the forward-only ms/frame, and the peak memory; the
+     device ms of one step by torch.profiler and its largest kernels;
+ 14. teapot 800x800 d4 through "binned": one value-and-grad of the albedo
+     loss with the launch counters reset just before and read just after:
+     cull, stream and packet must each launch, the gradient must be finite
+     and not zero; at 64x64 d4 the same gradient with the plain versions
+     on the card, and through "jnp", must agree with it within GRAD_RTOL;
+ 15. glass_slab at its checked-in 48x48 d6: tools/fit_ior with its
+     defaults (60 steps, spp 4) must end below half its starting IOR
+     error (the tool's exit code 0);
+ 16. Cornell 64x64 d4: the albedo gradient's three largest coordinates
+     against central differences (eps 1e-3, rtol 0.05, abs 1e-5);
+ 17. teapot 64x64 d4 through "jnp": the image must agree with "binned".
 The second-to-last lines are one JSON object with every kernel's numbers and
 the card's name and power limit; the last line is the result object.
 Exits non-zero, printing no result, where torch sees no CUDA device.
@@ -102,6 +121,15 @@ RAGGED = (1, 31, 4095, 4097, 2 ** 24 + 3)
 # 1e-5 * sum |x| allows chains of some 170 adds (the kernel's is under 60)
 SCAN_F32_RTOL = 1e-5
 MODE_ITERS = 2       # timed iterations of each engine mode at 800x800
+GLASS = "scenes/glass_slab.json"
+FIT_STEPS = 5        # albedo-fit steps at Cornell 800x800 d8
+PROFILE_TOP = 6      # the largest device kernels of a step that are logged
+# gradients through the kernels vs the plain versions (or "jnp"): the
+# backward of the material gather sums with atomics on the card, in an
+# order that changes from run to run, so equal only to float rounding
+GRAD_RTOL = 1e-5
+GRAD_ATOL = 1e-7
+FD_EPS, FD_RTOL, FD_ATOL = 1e-3, 0.05, 1e-5   # tests/test_grad.py
 
 
 def leaves(tree) -> list:
@@ -221,6 +249,200 @@ def image_agreement(name, img, ref) -> None:
         f"over {IMAGE_TOL}: {float(differs.mean()):.4%}")
     if differs.mean() >= IMAGE_SHARE:
         raise AssertionError(f"{name}: images disagree")
+
+
+def gradient_phases(dev, c_scene, c_set, scene, settings, c_small, cs_set,
+                    small, s_set, img_k) -> dict:
+    """Phases 13-17 (the module docstring): Cornell (c_*) and teapot at
+    their checked-in sizes and at 64x64 d4 (c_small, small), and the
+    kernels' 64x64 teapot image `img_k`. Raises on any failure."""
+    import torch
+    from pathtracer_tpu_torch import load_scene, render
+    from pathtracer_tpu_torch.engine.wavefront import (render_iteration,
+                                                       zero_accum)
+    from pathtracer_tpu_torch.ops import binned, bvh_packet, kernels
+    from pathtracer_tpu_torch.tools import fit_albedo, fit_ior
+    from pathtracer_tpu_torch.utils.grad import value_and_grad, with_materials
+    from pathtracer_tpu_torch.utils.kernel_bench import device_ms
+
+    # -- 13. gradients: the albedo fit, Cornell 800x800 d8 --------------------
+    grads = {}
+
+    def iteration(sc, st, grad=False):
+        """One fixed-depth iteration (iteration 1, seed 0): under inference
+        mode, or with the albedo requiring grad."""
+        if grad:
+            color = sc.materials.color.detach().requires_grad_(True)
+            sc = with_materials(sc, color=color)
+            return render_iteration(sc, st, zero_accum(st, dev), 1, seed=0,
+                                    early_exit=False)
+        with torch.inference_mode():
+            return render_iteration(sc, st, zero_accum(st, dev), 1, seed=0,
+                                    early_exit=False)
+
+    true_albedo = c_scene.materials.color.cpu().numpy()
+    target = iteration(c_scene, c_set)
+    wrong = with_materials(c_scene, color=torch.as_tensor(
+        fit_albedo.perturbed_albedo(true_albedo, 0.25), dtype=torch.float32,
+        device=dev))
+    img_g, img_i = iteration(wrong, c_set, grad=True), iteration(wrong, c_set)
+    for a, b in zip(img_g, img_i):
+        if not torch.equal(a.detach().view(torch.int32),
+                           b.view(torch.int32)):
+            raise AssertionError("cornell: the forward image in gradient "
+                                 "mode differs from inference mode")
+    del img_g, img_i
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        iteration(wrong, c_set)
+    torch.cuda.synchronize()
+    fwd_ms = 1000.0 * (time.perf_counter() - t0) / 3
+
+    def mae(sc):
+        return float(np.abs(sc.materials.color.cpu().numpy()
+                            - true_albedo).mean())
+
+    s, losses, step_ms, maes = wrong, [], [], [mae(wrong)]
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    for k in range(FIT_STEPS):
+        t0 = time.perf_counter()
+        s, loss = fit_albedo.albedo_fit_step(s, c_set, target, 1, lr=1.0,
+                                             seed=0)
+        losses.append(float(loss))
+        step_ms.append(1000.0 * (time.perf_counter() - t0))
+        maes.append(mae(s))
+    peak = torch.cuda.max_memory_allocated()
+    with torch.inference_mode():
+        final_loss = float(fit_albedo.albedo_loss(s, c_set, target, 1)(
+            s.materials.color))
+    step_dev, by_kernel = device_ms(lambda: fit_albedo.albedo_fit_step(
+        wrong, c_set, target, 1, lr=1.0, seed=0), reps=1, warmup=1)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]
+    grads["cornell_fit"] = {
+        "steps": FIT_STEPS, "losses": losses, "loss_after": final_loss,
+        "albedo_mae": maes, "step_ms": step_ms,
+        "forward_ms": fwd_ms, "peak_bytes": peak, "base_bytes": base_mem,
+        "step_device_ms": step_dev,
+        "top_kernels": [{"kernel": k[:120], "ms": ms} for k, ms in top]}
+    log(f"cornell {c_set.width}x{c_set.height} d{c_set.trace_depth} albedo "
+        f"fit: forward image in gradient mode bit-equal to inference mode; "
+        f"losses {losses}, after step {FIT_STEPS} {final_loss}; albedo MAE "
+        f"{maes}; ms a step (forward + backward) {step_ms}; forward-only "
+        f"{fwd_ms:.2f} ms/frame (fixed depth); peak memory "
+        f"{peak / 2**30:.3f} GiB ({base_mem / 2**30:.3f} GiB before)")
+    log(f"cornell albedo step, torch.profiler: {step_dev:.2f} device ms; "
+        f"its {PROFILE_TOP} largest kernels (ms): "
+        + "; ".join(f"{ms:.3f} {k[:90]}" for k, ms in top))
+    if not (final_loss < losses[0] and maes[-1] < maes[0]):
+        raise AssertionError("cornell albedo fit: loss or MAE did not fall")
+
+    # -- 14. gradients through the mesh kernels, teapot "binned" ------------
+    def albedo_grad(sc, st):
+        """value_and_grad of the albedo loss from the perturbed albedo,
+        against the true albedo's image."""
+        tgt = iteration(sc, st)
+        start = with_materials(sc, color=torch.as_tensor(
+            fit_albedo.perturbed_albedo(sc.materials.color.cpu().numpy(),
+                                        0.25), dtype=torch.float32,
+            device=dev))
+        return value_and_grad(fit_albedo.albedo_loss(start, st, tgt, 1),
+                              start.materials.color)
+
+    albedo_grad(scene, settings)                         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    t_loss, t_grad = albedo_grad(scene, settings)
+    torch.cuda.synchronize()
+    t_ms = 1000.0 * (time.perf_counter() - t0)
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    t_peak = torch.cuda.max_memory_allocated()
+    grads["teapot_binned"] = {"ms": t_ms, "launches": launches,
+                              "peak_bytes": t_peak, "loss": float(t_loss),
+                              "grad_max_abs": float(t_grad.abs().max())}
+    log(f"teapot {settings.width}x{settings.height} d{settings.trace_depth} "
+        f"binned albedo value-and-grad: loss {float(t_loss)}, max |g| "
+        f"{float(t_grad.abs().max()):.4g}, {t_ms:.2f} ms (target render + "
+        f"forward + backward), launches {launches}, peak memory "
+        f"{t_peak / 2**30:.3f} GiB")
+    for k in ("cull", "stream", "packet"):
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"teapot gradient never launched the {k} "
+                                 "kernel")
+    if not bool(torch.isfinite(t_grad).all()) or not bool(t_grad.any()):
+        raise AssertionError("teapot albedo gradient not finite or zero")
+    _, g_k = albedo_grad(small, s_set)
+    with mock.patch.object(binned, "cull", binned.cull_plain), \
+            mock.patch.object(binned, "stream", binned.stream_plain), \
+            mock.patch.object(bvh_packet, "packet_walk",
+                              bvh_packet.packet_walk_plain):
+        _, g_p = albedo_grad(small, s_set)
+    small_j, sj_set = load_scene(TEAPOT, dev, bvh_impl="jnp",
+                                 overrides={"RES": [64, 64], "DEPTH": 4})
+    _, g_j = albedo_grad(small_j, sj_set)
+    for label, g in (("plain versions", g_p), ('"jnp"', g_j)):
+        err = float((g - g_k).abs().max())
+        log(f"teapot 64x64 d4 albedo gradient, kernels vs {label}: max "
+            f"diff {err:.3g} (max |g| {float(g_k.abs().max()):.4g})")
+        torch.testing.assert_close(g, g_k, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    if not bool(g_k.any()):
+        raise AssertionError("teapot 64x64 albedo gradient is zero")
+
+    # -- 15. the IOR fit, glass_slab 48x48 d6 --------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = fit_ior.main([GLASS, "--res", "48", "--depth", "6",
+                       "--device", dev.type])
+    torch.cuda.synchronize()
+    ior_s = time.perf_counter() - t0
+    grads["glass_ior_fit"] = {"seconds": ior_s, "exit_code": rc,
+                              "peak_bytes": torch.cuda.max_memory_allocated()}
+    log(f"glass_slab 48x48 d6 IOR fit (60 steps, spp 4): exit code {rc}, "
+        f"{ior_s:.2f} s ({1000.0 * ior_s / 60:.1f} ms a step with the "
+        f"targets and the check), peak memory "
+        f"{grads['glass_ior_fit']['peak_bytes'] / 2**30:.3f} GiB")
+    if rc != 0:
+        raise AssertionError("glass_slab IOR fit did not halve its error")
+
+    # -- 16. finite differences on the card, Cornell 64x64 d4 ----------------
+    def image_mean(color):
+        # tests/test_grad.py's loss: the image sum over the pixel count
+        img = render_iteration(with_materials(c_small, color=color), cs_set,
+                               zero_accum(cs_set, dev), 1, seed=0,
+                               early_exit=False)
+        return (img.x.sum() + img.y.sum() + img.z.sum()) / cs_set.pixel_count
+
+    p0 = c_small.materials.color
+    _, g = value_and_grad(image_mean, p0)
+    flat = g.cpu().numpy().ravel()
+    p64 = p0.cpu().numpy().astype(np.float64)
+    checked = []
+    with torch.no_grad():
+        for i in np.argsort(-np.abs(flat))[:3]:
+            dp = np.zeros_like(p64).ravel()
+            dp[i] = FD_EPS
+            dp = dp.reshape(p64.shape)
+            lp, lm = (float(image_mean(torch.as_tensor(
+                p64 + sgn * dp, dtype=torch.float32, device=dev)))
+                for sgn in (1, -1))
+            fd = (lp - lm) / (2 * FD_EPS)
+            checked.append((int(i), float(flat[i]), fd))
+            if abs(fd - flat[i]) > FD_ATOL + FD_RTOL * abs(flat[i]):
+                raise AssertionError(f"cornell 64x64 albedo[{i}]: autodiff "
+                                     f"{flat[i]} vs FD {fd}")
+    grads["cornell_fd"] = checked
+    log(f"cornell 64x64 d4 albedo gradient vs central differences (index, "
+        f"autodiff, FD): {checked}")
+
+    # -- 17. "jnp" vs "binned", teapot 64x64 d4 ------------------------------
+    img_j = render(small_j, sj_set, iterations=2, seed=0)
+    image_agreement('teapot 64x64 d4 "jnp" vs binned', img_j, img_k)
+    log(json.dumps({"gradients": grads}))
+    return grads
 
 
 def main() -> int:
@@ -797,7 +1019,11 @@ def main() -> int:
         image_agreement(f"{name} 64x64 d4 persistent vs masked",
                         render_persistent(sc, st, iterations=2, seed=0), ref)
 
-    # -- 13. results -----------------------------------------------------------
+    # -- 13.-17. gradients ---------------------------------------------------
+    gradient_phases(dev, c_scene, c_set, scene, settings, c_small, cs_set,
+                    small, s_set, img_k)
+
+    # -- 18. results -----------------------------------------------------------
     log(json.dumps({"kernels": list(report.values())}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
     python -m pathtracer_tpu_torch scenes/teapot.json --res 800 --spp 16 \
         --depth 4 --out teapot.png --seed 0 [--bvh wide] [--device cuda] \
         [--engine persistent] [--chunk 16] [--no-early-exit] \
-        [--checkpoint ck.npz]
+        [--checkpoint ck.npz] [--width W --height H] [--no-jitter] \
+        [--no-dof] [--hdr]
 
 Renders on the CUDA device (`--device`, default "cuda"); without one it
 fails rather than fall back. `--device cpu` runs on the CPU, where every
@@ -12,7 +13,10 @@ kernel's plain PyTorch version runs. `--bvh` picks the mesh intersector
 it needs. `--engine` picks the wavefront engine (default) or the persistent
 one (identical images). `--checkpoint FILE` resumes from FILE if it exists
 and saves the accumulation to it after rendering. Writes the PNG and prints
-the time per iteration with the device it ran on.
+the time per iteration with the device it ran on; `--hdr` also writes the
+Radiance .hdr beside it. `--width` / `--height` override one side of the
+resolution (the other comes from `--res`); `--no-jitter` / `--no-dof` turn
+off the antialiasing jitter and the thin lens.
 """
 from __future__ import annotations
 
@@ -31,6 +35,8 @@ def main(argv=None) -> None:
     ap.add_argument("scene")
     ap.add_argument("--res", type=int, default=None,
                     help="override square resolution")
+    ap.add_argument("--width", type=int, default=None)
+    ap.add_argument("--height", type=int, default=None)
     ap.add_argument("--spp", type=int, default=None,
                     help="override ITERATIONS")
     ap.add_argument("--depth", type=int, default=None, help="override DEPTH")
@@ -38,6 +44,9 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--chunk", type=int, default=16,
                     help="iterations between progress points (checkpoints)")
+    ap.add_argument("--no-jitter", action="store_true")
+    ap.add_argument("--no-dof", action="store_true")
+    ap.add_argument("--hdr", action="store_true", help="also save .hdr")
     ap.add_argument("--no-early-exit", action="store_true",
                     help="run every bounce, even when no path is live")
     ap.add_argument("--checkpoint", type=str, default=None,
@@ -54,15 +63,21 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="torch device to render on (default cuda)")
     args = ap.parse_args(argv)
+    if (args.width is None) != (args.height is None) and args.res is None:
+        ap.error("--width and --height need each other or --res")
+
+    import dataclasses
 
     from . import load_scene, render, render_persistent
-    from .io.image import reference_style_name, save_png
+    from .io.image import reference_style_name, save_hdr, save_png
     from .utils.checkpoint import load_checkpoint, save_checkpoint
 
     device = resolve_device(args.device)
     overrides = {}
     if args.res is not None:
         overrides["RES"] = [args.res, args.res]
+    if args.width is not None or args.height is not None:
+        overrides["RES"] = [args.width or args.res, args.height or args.res]
     if args.spp is not None:
         overrides["ITERATIONS"] = args.spp
     if args.depth is not None:
@@ -70,6 +85,9 @@ def main(argv=None) -> None:
     scene, settings = load_scene(args.scene, device,
                                  overrides=overrides or None,
                                  bvh_impl=args.bvh)
+    if args.no_jitter or args.no_dof:
+        settings = dataclasses.replace(settings, jitter=not args.no_jitter,
+                                       dof=not args.no_dof)
 
     start_iteration, accum, seed = 0, None, args.seed
     if args.checkpoint and os.path.exists(args.checkpoint):
@@ -103,6 +121,8 @@ def main(argv=None) -> None:
     name = args.out or reference_style_name(
         settings.image_name, start_iteration + settings.iterations)
     save_png(img, name)
+    if args.hdr:
+        save_hdr(img, name.rsplit(".", 1)[0] + ".hdr")
     print(f"{settings.width}x{settings.height} d{settings.trace_depth} "
           f"{settings.iterations} iterations on {device.type}, bvh "
           f"{settings.bvh_impl}: "

@@ -193,7 +193,6 @@ def _dispatch_bounce(scene, settings, irng, depth, state, image):
     return bounce_step(scene, settings, irng, depth, state, image)
 
 
-@torch.inference_mode()
 def render_iteration(scene: SceneArrays, settings: RenderSettings,
                      accum: Vec3, iteration: int, seed: int = 0,
                      early_exit: bool = False) -> Vec3:
@@ -205,6 +204,11 @@ def render_iteration(scene: SceneArrays, settings: RenderSettings,
     device per bounce (the JAX package's while_loop keeps it on the chip);
     it also selects the sorted or tiled mode where the settings ask for
     one. Otherwise all trace_depth masked bounces run.
+
+    Differentiable with early_exit=False, as the JAX package's is: autograd
+    records the bounce loop whenever a scene tensor requires grad (the mesh
+    intersectors other than "jnp" return their hits as constants,
+    ops/intersect.py). `render` and `render_chunk` run it without autograd.
     """
     irng = rng.IterationRng(seed, iteration, pixel_map=settings.pixel_map())
     state = generate_paths(scene, settings, irng)
@@ -246,6 +250,7 @@ def ray_survival(scene: SceneArrays, settings: RenderSettings,
     return torch.stack(counts)
 
 
+@torch.inference_mode()
 def render_chunk(scene: SceneArrays, settings: RenderSettings,
                  accum: Vec3, start_iteration: int, n_iters: int,
                  seed: int = 0, early_exit: bool = True) -> Vec3:
@@ -261,6 +266,7 @@ def zero_accum(settings: RenderSettings, device) -> Vec3:
     return Vec3.zeros(settings.pixel_count, torch.device(device))
 
 
+@torch.inference_mode()
 def render(scene: SceneArrays, settings: RenderSettings,
            iterations: int | None = None, seed: int = 0,
            chunk: int = 16, early_exit: bool = True,

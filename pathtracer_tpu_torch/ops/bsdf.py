@@ -3,9 +3,11 @@
 The port of pathtracer_tpu/ops/bsdf.py (reference src/interactions.cu and
 shadeRealMaterial, pathtrace.cu:524-571). Every branch is computed for every
 lane and combined with selects; `any_glossy` / `any_refractive` drop the
-branches no material of the scene can take. This slice is forward-only; the
-JAX package's branch-probability surrogates keep their forward values
-(`_branch_weight`).
+branches no material of the scene can take. Differentiable as the JAX
+package's is: the Fresnel and gloss picks carry their branch-probability
+gradient through `_branch_prob_surrogate`, and the guards against inf and NaN
+in unselected branches (refract's k clamp, the IOR of non-refractive lanes,
+Vec3.normalize's clamp) are kept.
 """
 from __future__ import annotations
 
@@ -89,8 +91,12 @@ def gather_material(materials: MaterialArrays, mat_id: torch.Tensor
     material 0, as the JAX package's select chain does."""
     mid = torch.clamp(mat_id, min=0).long()
 
-    def col(table, c):
-        return table[:, c][mid]
+    def col(table, c=None):
+        # index_select rather than table[mid]: the same values, and its
+        # backward is one index_add_, where that of advanced indexing sorts
+        # the lane ids and, on CUDA, sums each run of one material serially
+        return torch.index_select(table if c is None else table[:, c], 0,
+                                  mid)
 
     return LaneMaterials(
         color=Vec3(col(materials.color, 0), col(materials.color, 1),
@@ -98,18 +104,24 @@ def gather_material(materials: MaterialArrays, mat_id: torch.Tensor
         specular_color=Vec3(col(materials.specular_color, 0),
                             col(materials.specular_color, 1),
                             col(materials.specular_color, 2)),
-        has_reflective=materials.has_reflective[mid],
-        has_refractive=materials.has_refractive[mid],
-        ior=materials.ior[mid],
-        emittance=materials.emittance[mid],
+        has_reflective=col(materials.has_reflective),
+        has_refractive=col(materials.has_refractive),
+        ior=col(materials.ior),
+        emittance=col(materials.emittance),
     )
 
 
-def _branch_weight(took_first: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """Forward value of the JAX package's _branch_prob_surrogate: 1, except
-    where the probability of the taken branch is below the 1e-6 clamp."""
-    w_first = p / torch.clamp(p, min=1e-6)
-    w_other = (1.0 - p) / torch.clamp(1.0 - p, min=1e-6)
+def _branch_prob_surrogate(took_first: torch.Tensor, p: torch.Tensor
+                           ) -> torch.Tensor:
+    """Value-1 weight whose gradient carries the branch-probability
+    derivative (pathtracer_tpu/ops/bsdf.py:146): the taken branch is
+    weighted by p / detach(p) (or (1-p) / (1-detach(p))), so every sample
+    keeps its value and E[w f] = p f_first + (1-p) f_other is
+    differentiable in p. Its value is 1, except where the probability of
+    the taken branch is below the 1e-6 clamp."""
+    p0 = p.detach()
+    w_first = p / torch.clamp(p0, min=1e-6)
+    w_other = (1.0 - p) / torch.clamp(1.0 - p0, min=1e-6)
     return torch.where(took_first, w_first, w_other)
 
 
@@ -149,7 +161,8 @@ def scatter_ray(direction: Vec3, hit_point: Vec3, normal: Vec3,
         mirror_dir = reflect(direction, normal).normalize()
         gloss_dir = Vec3.where(gloss_take_diffuse, diff_dir, mirror_dir)
         gloss_thr = Vec3.where(gloss_take_diffuse, m.color, m.specular_color)
-        gloss_thr = gloss_thr * _branch_weight(gloss_take_diffuse, p_diffuse)
+        gloss_thr = gloss_thr * _branch_prob_surrogate(gloss_take_diffuse,
+                                                       p_diffuse)
         out_dir = Vec3.where(is_gloss, gloss_dir, out_dir)
         throughput = Vec3.where(is_gloss, gloss_thr, throughput)
 
@@ -176,7 +189,7 @@ def scatter_ray(direction: Vec3, hit_point: Vec3, normal: Vec3,
                                     hit_point - r_normal * SCATTER_EPS)
         refract_thr = Vec3.where(do_reflect, m.specular_color, m.color)
         refract_thr = refract_thr * torch.where(
-            tir, 1.0, _branch_weight(do_reflect, reflect_prob))
+            tir, 1.0, _branch_prob_surrogate(do_reflect, reflect_prob))
         out_dir = Vec3.where(is_refr, refract_out_dir, out_dir)
         out_origin = Vec3.where(is_refr, refract_origin, out_origin)
         throughput = Vec3.where(is_refr, refract_thr, throughput)

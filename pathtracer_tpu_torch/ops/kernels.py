@@ -14,6 +14,12 @@ main path went through. A call counts once whatever the number of device
 kernels it launches: "packet", "wide_push" and "wide_mask" are each a
 compaction kernel and a walk over the compacted lanes (csrc/packet.cu,
 wide.cu).
+
+No kernel has a backward, and none needs an autograd.Function: as the
+Pallas kernels have no AD rule in the JAX package, the mesh intersectors
+that launch them return their hits as constants
+(ops/intersect.py `_constant`), and the scan only reorders lanes on the
+forward-only engine modes.
 """
 from __future__ import annotations
 

@@ -68,7 +68,11 @@ class _Scratch:
     counter, words 1.. one flag a tile; `epoch` is the last call's."""
 
     def __init__(self, tiles: int, device):
-        self.words = torch.zeros(tiles + 1, dtype=torch.int64, device=device)
+        # a normal tensor even when first made under inference mode, so a
+        # later call outside it may still zero it in place
+        with torch.inference_mode(False):
+            self.words = torch.zeros(tiles + 1, dtype=torch.int64,
+                                     device=device)
         self.epoch = 0
 
     def next_epoch(self) -> int:

@@ -29,3 +29,11 @@ def model_path(name: str) -> str:
     if not os.path.exists(p):
         raise FileNotFoundError(f"model '{name}' not found")
     return p
+
+
+def golden_path() -> str:
+    """The reference Cornell 5000-spp golden render (PNG), checked in."""
+    p = os.path.join(REPO_SCENES, "golden", "REFERENCE_cornell.5000samp.png")
+    if not os.path.exists(p):
+        raise FileNotFoundError("golden render not found")
+    return p

@@ -24,9 +24,10 @@ from ..utils.math import PI, build_transformation_matrix, inverse_transpose, nor
 from . import obj as obj_loader
 from .bvh import align_leaves, build_bvh
 from .bvh8 import build_wide_bvh, concat_wide
-from .types import (CUBE, MESH, SPHERE, BVHArrays, CameraArrays, GeomArrays,
-                    MaterialArrays, RenderSettings, SceneArrays,
-                    make_scene_arrays, pack_tris_brute, pack_wide_nodes)
+from .types import (CUBE, MESH, SPHERE, TRIANGLE_FIELDS, BVHArrays,
+                    CameraArrays, GeomArrays, MaterialArrays, RenderSettings,
+                    SceneArrays, make_scene_arrays, make_triangle_arrays,
+                    pack_tris_brute, pack_wide_nodes)
 
 # tri count above which a mesh gets fat 288-tri treelets (48 rows)
 BIG_MESH_TRIS = 24000
@@ -138,7 +139,8 @@ def load_scene(path: str, device, orbit: bool = True,
     `wide_tables=True` also builds the 8-wide BVH of every mesh
     (bvh_impl="wide" / "wide_nosort", the binned wide fallback).
     `bvh_impl`, when given, becomes the settings' mesh intersector and
-    loads the tables it needs (render.py's --bvh handling)."""
+    loads the tables it needs (render.py's --bvh handling); "jnp" also
+    builds the per-triangle SoA table, which only that walk reads."""
     if bvh_impl == "brute":
         brute_tables = True
     if bvh_impl in ("wide", "wide_nosort"):
@@ -278,7 +280,8 @@ def load_scene(path: str, device, orbit: bool = True,
     wide_data = concat_wide(wide_meshes) if wide_meshes else None
     arrays = make_scene_arrays(geoms, materials, bvh_nodes, bvh_tris, cam,
                                device, brute_tables=brute_tables,
-                               wide_data=wide_data, tre_rows=scene_tre_rows)
+                               wide_data=wide_data, tre_rows=scene_tre_rows,
+                               triangle_table=bvh_impl == "jnp")
     return arrays, settings
 
 
@@ -300,6 +303,11 @@ def scene_from_jax_arrays(arrays: dict, device) -> SceneArrays:
                       for f in dataclasses.fields(cls)})
 
     geoms = group(GeomArrays, "geoms")
+    # the JAX package always builds the triangle table
+    tris = {name: np.stack([np.asarray(arrays[f"triangles.{name}{c}"])
+                            for c in "xyz"], axis=1)
+            for name in TRIANGLE_FIELDS}
+    tris["material_id"] = arrays["triangles.material_id"]
     brute, brute_tris = pack_tris_brute(np.asarray(arrays["tris_mxu_c"]))
     gtype = np.asarray(arrays["geoms.gtype"])
     roots = np.asarray(arrays["geoms.root_node"])
@@ -308,6 +316,7 @@ def scene_from_jax_arrays(arrays: dict, device) -> SceneArrays:
         materials=group(MaterialArrays, "materials"),
         bvh=group(BVHArrays, "bvh"),
         camera=group(CameraArrays, "camera"),
+        triangles=make_triangle_arrays(tris, device),
         bvh_packed_f=t("bvh_packed_f"), bvh_packed_i=t("bvh_packed_i"),
         tris_packed=t("tris_packed"),
         treelet_f=t("treelet_f"), treelet_i=t("treelet_i"),

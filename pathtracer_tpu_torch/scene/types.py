@@ -8,9 +8,11 @@ so the CUDA kernels (ops/binned.py, ops/bvh_packet.py) read exactly the tables
 the Pallas kernels read, and the tests can hold one against the other.
 
 Left out: the per-chunk gate table and the per-triangle attribute table,
-which only ablations not ported yet read. The brute-force tables and the
-8-wide BVH tables are built on request (`brute_tables` / `wide_data`), as in
-the JAX package; otherwise they are placeholders.
+which only ablations not ported yet read. The brute-force tables, the 8-wide
+BVH tables and the per-triangle SoA table of the "jnp" walk are built on
+request (`brute_tables` / `wide_data` / `triangle_table`, which the loader
+sets for bvh_impl="jnp"); otherwise they are placeholders (the JAX package
+always builds the last).
 """
 from __future__ import annotations
 
@@ -89,6 +91,63 @@ class BVHArrays:
 
 
 @dataclasses.dataclass
+class TriangleArrays:
+    """SoA of the BVH-ordered triangles, fully component-split for 1-D
+    gathers (pathtracer_tpu/scene/types.py:502): 18 coordinate tensors [T]
+    and the material id. Zero rows unless the scene was loaded for the
+    "jnp" walk."""
+
+    v0x: torch.Tensor
+    v0y: torch.Tensor
+    v0z: torch.Tensor
+    v1x: torch.Tensor
+    v1y: torch.Tensor
+    v1z: torch.Tensor
+    v2x: torch.Tensor
+    v2y: torch.Tensor
+    v2z: torch.Tensor
+    n0x: torch.Tensor
+    n0y: torch.Tensor
+    n0z: torch.Tensor
+    n1x: torch.Tensor
+    n1y: torch.Tensor
+    n1z: torch.Tensor
+    n2x: torch.Tensor
+    n2y: torch.Tensor
+    n2z: torch.Tensor
+    material_id: torch.Tensor  # [T] int32
+
+    def vertex(self, name: str, idx: torch.Tensor):
+        """Gather one corner or normal (name in v0..n2) as a Vec3 of [N]."""
+        from ..utils.vec import Vec3
+        return Vec3(getattr(self, name + "x")[idx],
+                    getattr(self, name + "y")[idx],
+                    getattr(self, name + "z")[idx])
+
+    @property
+    def count(self) -> int:
+        return self.v0x.shape[0]
+
+
+TRIANGLE_FIELDS = ("v0", "v1", "v2", "n0", "n1", "n2")
+
+
+def make_triangle_arrays(tris, device) -> TriangleArrays:
+    """TriangleArrays on `device` from the loader's triangle dict (None:
+    the zero-row placeholder)."""
+    comps = []
+    for name in TRIANGLE_FIELDS:
+        a = (np.zeros((0, 3), np.float32) if tris is None
+             else np.array(tris[name], np.float32))
+        comps.extend(torch.as_tensor(np.ascontiguousarray(a[:, c]),
+                                     device=device) for c in range(3))
+    mat = (np.zeros(0, np.int32) if tris is None
+           else np.array(tris["material_id"], np.int32))
+    return TriangleArrays(*comps, material_id=torch.as_tensor(mat,
+                                                              device=device))
+
+
+@dataclasses.dataclass
 class CameraArrays:
     """Camera parameters (reference sceneStructs.h:85-97)."""
 
@@ -109,6 +168,9 @@ class SceneArrays:
     materials: MaterialArrays
     bvh: BVHArrays
     camera: CameraArrays
+    # per-triangle SoA for the "jnp" walk; zero rows unless loaded with
+    # bvh_impl="jnp"
+    triangles: TriangleArrays
     # row-packed tables for the packet walk (pack_bvh_tables)
     bvh_packed_f: torch.Tensor   # [Rf, 128] f32
     bvh_packed_i: torch.Tensor   # [Ri, 128] i32
@@ -171,8 +233,9 @@ class RenderSettings:
     # (ops/binned.py), "pallas" (the packet walk alone, ops/bvh_packet.py),
     # "sorted" (the packet walk over coherence-sorted chunks), "wide" /
     # "wide_nosort" (the 8-wide walk, ops/wide.py, with or without that
-    # sort; needs wide tables) and "brute" (every triangle, ops/brute.py;
-    # needs brute tables)
+    # sort; needs wide tables), "brute" (every triangle, ops/brute.py;
+    # needs brute tables) and "jnp" (the differentiable reference walk,
+    # ops/intersect.py mesh_intersect; needs the triangle table)
     bvh_impl: str = "pallas"
     look_at: tuple = (0.0, 0.0, 0.0)
     fovy_deg: float = 45.0
@@ -550,7 +613,8 @@ def _inverted_boxes(shape) -> np.ndarray:
 
 def make_scene_arrays(geom_list, material_list, bvh_nodes, bvh_tris, camera,
                       device, brute_tables: bool = False, wide_data=None,
-                      tre_rows: int = None) -> SceneArrays:
+                      tre_rows: int = None,
+                      triangle_table: bool = False) -> SceneArrays:
     """Build SceneArrays on `device` from the loader's host lists/dicts
     (pathtracer_tpu/scene/types.py:698, minus the chunk-gate and tri-attr
     tables).
@@ -560,6 +624,8 @@ def make_scene_arrays(geom_list, material_list, bvh_nodes, bvh_tris, camera,
     wide_data: optional (wide_nodes, tris8_dict, root) from scene/bvh8.py
     concat_wide; without it a one-node forest whose slots are all empty is
     packed, and `wide_built` is False so the 8-wide walk can reject the
+    scene. triangle_table: also build the per-triangle SoA table of the
+    "jnp" walk; without it it has zero rows, and the walk rejects the
     scene."""
     assert len(geom_list) > 0, "scene must have at least one geom"
     assert len(material_list) > 0, "scene must have at least one material"
@@ -660,6 +726,9 @@ def make_scene_arrays(geom_list, material_list, bvh_nodes, bvh_tris, camera,
     )
     return SceneArrays(
         geoms=geoms, materials=materials, bvh=bvh, camera=cam,
+        triangles=make_triangle_arrays(
+            bvh_tris if triangle_table and bvh_nodes is not None
+            and len(bvh_nodes["bounds_min"]) else None, device),
         bvh_packed_f=f32(packed_f), bvh_packed_i=i32(packed_i),
         tris_packed=f32(packed_t),
         treelet_f=f32(treelet_f), treelet_i=i32(treelet_i),

@@ -6,7 +6,7 @@ The RNG streams are bit-identical, so the two images sample the same paths;
 they can only part where a few-ulp difference (XLA's CPU backend contracts
 multiply-adds, torch does not) flips a discrete decision. The criterion is
 the share of pixels that differ by more than 1e-4 in any channel: it must be
-under 1%. Measured on the CPU at these sizes: 0.0% for both scenes (the
+under 1%. Measured on the CPU at these sizes: 0.0% for every scene (the
 images were bit-identical).
 """
 import dataclasses
@@ -28,7 +28,10 @@ torch.set_num_threads(2)
 
 
 @pytest.mark.parametrize("name,res,depth", [("teapot", 32, 3),
-                                            ("cornell", 64, 4)])
+                                            ("cornell", 64, 4),
+                                            ("glass_slab", 32, 6),
+                                            ("sphere", 32, 6),
+                                            ("open_test_scene", 32, 6)])
 def test_one_iteration_matches_jax(name, res, depth):
     overrides = {"RES": [res, res], "DEPTH": depth}
     j_scene, j_set = jax_load_scene(scene_path(name), overrides=overrides)
@@ -121,3 +124,72 @@ def test_save_png_round_trip(tmp_path):
     back = np.asarray(PIL.open(path).convert("RGB"))
     want = (np.clip(img, 0, 1) * 255).astype(np.uint8)[:, ::-1, :]
     np.testing.assert_array_equal(back, want)
+
+
+def _cli_image(tmp_path, *flags):
+    """The PNG the command line writes for Cornell with `flags`."""
+    from pathtracer_tpu_torch.__main__ import main
+    from pathtracer_tpu_torch.io.image import load_png
+
+    out = tmp_path / ("_".join(f.strip("-") for f in flags) + ".png")
+    main([scene_path("cornell"), "--res", "12", "--spp", "2", "--depth", "2",
+          "--out", str(out), "--device", "cpu", *flags])
+    return load_png(str(out))
+
+
+def _expected_png(settings):
+    from pathtracer_tpu_torch.io.image import to_uint8
+
+    scene, _ = load_scene(scene_path("cornell"), "cpu", overrides={
+        "RES": [settings.width, settings.height], "DEPTH": 2})
+    img = render(scene, settings, iterations=2, seed=0)
+    return to_uint8(img)[:, ::-1, :] / np.float32(255.0)
+
+
+@pytest.mark.parametrize("flags,want", [
+    (("--width", "20"), {"width": 20, "height": 12}),
+    (("--height", "9"), {"width": 12, "height": 9}),
+])
+def test_command_line_width_and_height(tmp_path, capsys, flags, want):
+    """--width / --height override one side, the other comes from --res."""
+    img = _cli_image(tmp_path, *flags)
+    assert img.shape == (want["height"], want["width"], 3)
+    assert f"{want['width']}x{want['height']} d2" in capsys.readouterr().out
+    _, settings = load_scene(scene_path("cornell"), "cpu", overrides={
+        "RES": [want["width"], want["height"]], "DEPTH": 2})
+    np.testing.assert_array_equal(img, _expected_png(settings))
+
+
+@pytest.mark.parametrize("flag,field", [("--no-jitter", "jitter"),
+                                        ("--no-dof", "dof")])
+def test_command_line_no_jitter_no_dof(tmp_path, flag, field):
+    """Each flag renders with that setting off: the PNG of render() with
+    it off."""
+    _, settings = load_scene(scene_path("cornell"), "cpu",
+                             overrides={"RES": [12, 12], "DEPTH": 2})
+    img = _cli_image(tmp_path, flag)
+    np.testing.assert_array_equal(
+        img, _expected_png(dataclasses.replace(settings, **{field: False})))
+
+
+def test_command_line_hdr(tmp_path):
+    """--hdr writes the .hdr beside the PNG, as render.py does, with the
+    JAX writer's bytes for the rendered image."""
+    from pathtracer_tpu.io.image import save_hdr as j_save_hdr
+
+    _cli_image(tmp_path, "--hdr")
+    hdr = (tmp_path / "hdr.hdr").read_bytes()
+    assert hdr.startswith(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y 12 +X 12\n")
+    scene, settings = load_scene(scene_path("cornell"), "cpu",
+                                 overrides={"RES": [12, 12], "DEPTH": 2})
+    img = render(scene, settings, iterations=2, seed=0)
+    j_save_hdr(img, str(tmp_path / "want.hdr"))
+    assert hdr == (tmp_path / "want.hdr").read_bytes()
+
+
+def test_command_line_width_alone_needs_res(tmp_path):
+    from pathtracer_tpu_torch.__main__ import main
+
+    with pytest.raises(SystemExit):
+        main([scene_path("cornell"), "--width", "8", "--device", "cpu",
+              "--out", str(tmp_path / "x.png")])
