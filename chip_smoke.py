@@ -73,7 +73,32 @@ Phases, each fatal on failure:
      error (the tool's exit code 0);
  16. Cornell 64x64 d4: the albedo gradient's three largest coordinates
      against central differences (eps 1e-3, rtol 0.05, abs 1e-5);
- 17. teapot 64x64 d4 through "jnp": the image must agree with "binned".
+ 17. teapot 64x64 d4 through "jnp": the image must agree with "binned";
+ 18. (a) one NCCL rank (parallel/distributed.init_distributed on a free
+     localhost port, world size 1): render_distributed of teapot 800x800
+     d4 binned, PAR_ITERS iterations, must equal render bit for bit and
+     launch cull, stream and packet (counters reset just before, read just
+     after); one sharded albedo_fit_step on Cornell 800x800 d8 must equal
+     tools/fit_albedo.albedo_fit_step within GRAD_RTOL in loss and new
+     albedo; the gather's and the all-reduce's ms; the group is destroyed
+     at the end of the phase;
+ 19. (b) local shards on the one card: render_sharded of teapot 800x800 d4
+     binned at 1 and 4 shards must equal render bit for bit, each with its
+     ms/frame and cull / stream / packet launches (counters reset just
+     before each); render_persistent_sharded of Cornell 800x800 d8 at
+     PERSIST_SPP spp on 4 shards must match render_persistent within rtol
+     and atol 1e-5; shard_work_counts of Cornell and teapot on 4 shards,
+     with and without the interleave: the interleaved max/mean must be
+     below the contiguous one;
+ 20. (c) two ranks in two processes on the one card, with gloo (NCCL
+     refuses two ranks on one GPU): tools/multihost_worker on teapot
+     800x800 d4 binned (PAR_ITERS iterations) and on Cornell 800x800 d8
+     with --fit; the images of the ranks must equal each other and the
+     single-process render bit for bit, the ranks' new albedos each other
+     bit for bit and phase 18's single-process step within GRAD_RTOL, and
+     each teapot rank must launch cull, stream and packet; a worker that
+     outlives WORKER_TIMEOUT is killed and fails the phase;
+ 21. (d) parallel/dryrun.dryrun_multichip(1) on the card.
 The second-to-last lines are one JSON object with every kernel's numbers and
 the card's name and power limit; the last line is the result object.
 Exits non-zero, printing no result, where torch sees no CUDA device.
@@ -130,6 +155,12 @@ PROFILE_TOP = 6      # the largest device kernels of a step that are logged
 GRAD_RTOL = 1e-5
 GRAD_ATOL = 1e-7
 FD_EPS, FD_RTOL, FD_ATOL = 1e-3, 0.05, 1e-5   # tests/test_grad.py
+PAR_ITERS = 2        # iterations of each sharded teapot render
+PERSIST_SPP = 8      # samples of the sharded persistent Cornell render
+WORK_ITERS = 4       # iterations of each shard_work_counts
+PERSIST_TOL = dict(rtol=1e-5, atol=1e-5)   # tests/test_torch_modes.py
+WORKER_TIMEOUT = 300  # seconds a worker process may take
+COLLECTIVE_REPS = 5
 
 
 def leaves(tree) -> list:
@@ -443,6 +474,283 @@ def gradient_phases(dev, c_scene, c_set, scene, settings, c_small, cs_set,
     image_agreement('teapot 64x64 d4 "jnp" vs binned', img_j, img_k)
     log(json.dumps({"gradients": grads}))
     return grads
+
+
+def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
+    """Equal float32 arrays, by their bits."""
+    return a.shape == b.shape and np.array_equal(a.view(np.int32),
+                                                 b.view(np.int32))
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(world: int, out: str, scene: str, *extra) -> list:
+    """`world` tools/multihost_worker processes with gloo on cuda:0; returns
+    each rank's JSON report. Raises if a worker fails, or outlives
+    WORKER_TIMEOUT (every worker is then killed)."""
+    import os
+    init = f"tcp://127.0.0.1:{free_port()}"
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "pathtracer_tpu_torch.tools.multihost_worker",
+         scene, out, "--device", "cuda:0", "--backend", "gloo",
+         "--init-method", init, "--world-size", str(world), "--rank",
+         str(rank), *extra],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(world)]
+    logs, timed_out = [], False
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=WORKER_TIMEOUT)[0])
+        except subprocess.TimeoutExpired:
+            timed_out = True
+            for q in procs:
+                q.kill()
+            logs.append(p.communicate()[0])
+    for rank, (p, text) in enumerate(zip(procs, logs)):
+        if timed_out or p.returncode != 0:
+            raise AssertionError(
+                f"worker rank {rank} of {scene} "
+                + ("timed out" if timed_out else f"exit {p.returncode}")
+                + f":\n{text[-3000:]}")
+    return [json.loads(text.strip().splitlines()[-1]) for text in logs]
+
+
+def parallel_phases(dev, scene, settings, c_scene, c_set) -> dict:
+    """Phases 18-21 (the module docstring): teapot 800x800 d4 binned
+    (scene) and Cornell 800x800 d8 (c_scene). Raises on any failure."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from pathtracer_tpu_torch import render, render_persistent
+    from pathtracer_tpu_torch.engine.wavefront import (render_iteration,
+                                                       zero_accum)
+    from pathtracer_tpu_torch.ops import kernels
+    from pathtracer_tpu_torch.parallel import distributed, dryrun, sharding
+    from pathtracer_tpu_torch.tools import fit_albedo
+    from pathtracer_tpu_torch.utils.grad import with_materials
+
+    out = {}
+    b13 = ("cull", "stream", "packet")
+
+    def counted(label, fn, frames, shards=1):
+        """fn() with the launch counters reset just before and read just
+        after: (result, ms a frame, launches). B1-B3 must launch."""
+        torch.cuda.synchronize()
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        ms = 1000.0 * (time.perf_counter() - t0) / frames
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        for k in b13:
+            if launches.get(k, 0) <= 0:
+                raise AssertionError(f"{label} never launched the {k} "
+                                     "kernel")
+        out[label] = {"ms_per_frame": ms, "launches": launches,
+                      "launches_a_frame_a_shard": {
+                          k: launches[k] / (frames * shards) for k in b13}}
+        return res, ms, launches
+
+    def tol_used(got, want) -> float:
+        """The largest share of the GRAD_RTOL / GRAD_ATOL tolerance that a
+        coordinate of `got` uses against `want`."""
+        return float(((got - want).abs()
+                      / (GRAD_ATOL + GRAD_RTOL * want.abs())).max())
+
+    def peak_over(base: int) -> int:
+        """Peak device bytes since the last reset, above `base`."""
+        return torch.cuda.max_memory_allocated() - base
+
+    def collective_ms(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(COLLECTIVE_REPS):
+            fn()
+        torch.cuda.synchronize()
+        return 1000.0 * (time.perf_counter() - t0) / COLLECTIVE_REPS
+
+    t_all = time.perf_counter()
+    ref = render(scene, settings, iterations=PAR_ITERS, seed=0)
+    with torch.inference_mode():
+        target = render_iteration(c_scene, c_set, zero_accum(c_set, dev), 1,
+                                  seed=0, early_exit=False)
+    wrong = with_materials(c_scene, color=torch.as_tensor(
+        fit_albedo.perturbed_albedo(c_scene.materials.color.cpu().numpy(),
+                                    0.25), dtype=torch.float32, device=dev))
+    new_1, loss_1 = fit_albedo.albedo_fit_step(wrong, c_set, target, 1,
+                                               lr=1.0, seed=0)
+    new_1 = new_1.materials.color
+
+    # -- 18. one NCCL rank ----------------------------------------------------
+    t_phase = time.perf_counter()
+    distributed.init_distributed("nccl", f"tcp://127.0.0.1:{free_port()}",
+                                 world_size=1, rank=0)
+    try:
+        distributed.render_distributed(scene, settings, iterations=1,
+                                       device=dev)           # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        img, ms, launches = counted(
+            "nccl_1_rank_teapot", lambda: distributed.render_distributed(
+                scene, settings, iterations=PAR_ITERS, device=dev),
+            PAR_ITERS)
+        peak = peak_over(base)
+        if not same_bits(img, ref):
+            raise AssertionError("render_distributed (1 NCCL rank) differs "
+                                 "from render")
+        mesh = distributed.global_ray_mesh()
+        blocks = sharding.shard_accum(target, mesh)
+        new_d, loss_d = sharding.albedo_fit_step(wrong, c_set, mesh, blocks,
+                                                 1, lr=1.0, seed=0)
+        torch.testing.assert_close(loss_d, loss_1, rtol=GRAD_RTOL, atol=0)
+        torch.testing.assert_close(new_d.materials.color, new_1,
+                                   rtol=GRAD_RTOL, atol=GRAD_ATOL)
+        grad_like = torch.zeros(new_1.numel() + 1, device=dev)
+        gather_ms = collective_ms(lambda: sharding.gather_accum(blocks, mesh))
+        reduce_ms = collective_ms(lambda: sharding.all_reduce(grad_like,
+                                                              mesh))
+        out["nccl_1_rank_teapot"].update(peak_bytes=peak)
+        out["nccl_1_rank_albedo"] = {
+            "loss": float(loss_d), "loss_single": float(loss_1),
+            "max_abs_diff": float((new_d.materials.color
+                                   - new_1).abs().max()),
+            "tolerance_used": tol_used(new_d.materials.color, new_1),
+            "gather_ms": gather_ms, "all_reduce_ms": reduce_ms}
+    finally:
+        dist.destroy_process_group()
+    log(f"1 NCCL rank: teapot {settings.width}x{settings.height} "
+        f"d{settings.trace_depth} render_distributed bit-equal to render, "
+        f"{ms:.2f} ms/frame, launches {launches}, peak memory "
+        f"{peak / 2**30:.3f} GiB over the scenes; cornell albedo step loss "
+        f"{float(loss_d)} (single-device {float(loss_1)}), new albedo max "
+        f"diff {out['nccl_1_rank_albedo']['max_abs_diff']:.3g} "
+        f"({out['nccl_1_rank_albedo']['tolerance_used']:.3f} of the "
+        "tolerance); gather "
+        f"{gather_ms:.3f} ms, all-reduce {reduce_ms:.3f} ms; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # -- 19. local shards on the one card -------------------------------------
+    t_phase = time.perf_counter()
+    for n in (1, 4):
+        mesh = sharding.make_ray_mesh(n, devices=dev)
+        sharding.render_sharded(scene, settings, mesh, iterations=1)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        img, ms, launches = counted(
+            f"local_{n}_shards_teapot", lambda: sharding.render_sharded(
+                scene, settings, mesh, iterations=PAR_ITERS), PAR_ITERS, n)
+        out[f"local_{n}_shards_teapot"].update(peak_bytes=peak_over(base))
+        if not same_bits(img, ref):
+            raise AssertionError(f"render_sharded on {n} shards differs "
+                                 "from render")
+        log(f"{n} local shard(s): teapot render_sharded bit-equal to render,"
+            f" {ms:.2f} ms/frame, launches {launches} (a frame a shard: "
+            f"{out[f'local_{n}_shards_teapot']['launches_a_frame_a_shard']}"
+            f"), peak memory "
+            f"{out[f'local_{n}_shards_teapot']['peak_bytes'] / 2**30:.3f} "
+            "GiB over the scenes")
+    mesh4 = sharding.make_ray_mesh(4, devices=dev)
+    t0 = time.perf_counter()
+    p_img = sharding.render_persistent_sharded(c_scene, c_set, mesh4,
+                                               iterations=PERSIST_SPP)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    p_ref = render_persistent(c_scene, c_set, iterations=PERSIST_SPP)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    np.testing.assert_allclose(p_img, p_ref, **PERSIST_TOL)
+    out["persistent_cornell"] = {
+        "spp": PERSIST_SPP, "max_abs_diff": float(np.abs(p_img - p_ref).max()),
+        "sharded_ms_per_frame": 1000.0 * (t1 - t0) / PERSIST_SPP,
+        "single_ms_per_frame": 1000.0 * (t2 - t1) / PERSIST_SPP}
+    log(f"cornell {c_set.width}x{c_set.height} d{c_set.trace_depth} "
+        f"render_persistent_sharded, 4 shards, {PERSIST_SPP} spp: max diff "
+        f"{out['persistent_cornell']['max_abs_diff']:.3g} against "
+        f"render_persistent; "
+        f"{out['persistent_cornell']['sharded_ms_per_frame']:.2f} against "
+        f"{out['persistent_cornell']['single_ms_per_frame']:.2f} ms/frame")
+    for name, sc, st in (("cornell", c_scene, c_set),
+                         ("teapot", scene, settings)):
+        ratios = {}
+        for interleave in (True, False):
+            w = sharding.shard_work_counts(sc, st, mesh4, WORK_ITERS,
+                                           interleave=interleave)
+            ratios["interleaved" if interleave else "contiguous"] = (
+                float(w.max() / w.mean()), w.tolist())
+        out[f"work_{name}"] = ratios
+        log(f"{name} shard_work_counts, 4 shards, {WORK_ITERS} iterations: "
+            f"max/mean interleaved {ratios['interleaved'][0]:.4f} "
+            f"{ratios['interleaved'][1]}, contiguous "
+            f"{ratios['contiguous'][0]:.4f} {ratios['contiguous'][1]}")
+        if not ratios["interleaved"][0] < ratios["contiguous"][0]:
+            raise AssertionError(f"{name}: the interleave does not balance "
+                                 "the shards' work")
+    log(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 20. two ranks in two processes on the one card (gloo) ----------------
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t_out = f"{tmp}/teapot"
+        reports = run_ranks(2, t_out, TEAPOT, "--spp", str(PAR_ITERS))
+        imgs = [np.load(f"{t_out}.{r}.npy") for r in range(2)]
+        c_out = f"{tmp}/cornell"
+        c_reports = run_ranks(2, c_out, CORNELL, "--spp", "1", "--fit")
+        c_imgs = [np.load(f"{c_out}.{r}.npy") for r in range(2)]
+        albedo = [np.load(f"{c_out}.albedo.{r}.npy") for r in range(2)]
+    c_ref = render(c_scene, c_set, iterations=1, seed=0)
+    for label, got, want in (("teapot", imgs, ref),
+                             ("cornell", c_imgs, c_ref)):
+        if not (same_bits(got[0], got[1]) and same_bits(got[0], want)):
+            raise AssertionError(f"2 gloo ranks: the {label} images differ "
+                                 "from each other or from render")
+    if not same_bits(albedo[0], albedo[1]):
+        raise AssertionError("2 gloo ranks: the new albedos differ")
+    albedo_2 = torch.as_tensor(albedo[0], device=dev)
+    torch.testing.assert_close(albedo_2, new_1, rtol=GRAD_RTOL,
+                               atol=GRAD_ATOL)
+    for r in reports:
+        for k in b13:
+            if r["launches"].get(k, 0) <= 0:
+                raise AssertionError(f"gloo rank {r['rank']} never launched "
+                                     f"the {k} kernel")
+    out["gloo_2_ranks"] = {
+        "teapot": reports, "cornell": c_reports,
+        "albedo_max_abs_diff": float((albedo_2 - new_1).abs().max()),
+        "albedo_tolerance_used": tol_used(albedo_2, new_1),
+        "seconds": time.perf_counter() - t_phase}
+    for r in reports + c_reports:
+        log(f"gloo rank {r['rank']}/2 {r['size']} {r['bvh_impl']}: "
+            f"{r['ms_per_frame']:.2f} ms/frame, launches {r['launches']}, "
+            f"gather {r['gather_ms']:.3f} ms, all-reduce "
+            f"{r['all_reduce_ms']:.3f} ms, peak memory "
+            f"{r['peak_bytes'] / 2**30:.3f} GiB (scene included)"
+            + (f", albedo step {r['fit_ms']:.1f} ms, loss {r['fit_loss']}"
+               if "fit_ms" in r else ""))
+    log("2 gloo ranks on one card: teapot and cornell images bit-equal to "
+        "each other and to render; new albedos bit-equal, max diff "
+        f"{out['gloo_2_ranks']['albedo_max_abs_diff']:.3g} "
+        f"({out['gloo_2_ranks']['albedo_tolerance_used']:.3f} of the "
+        "tolerance) to the single-process step; phase "
+        f"{out['gloo_2_ranks']['seconds']:.1f} s")
+
+    # -- 21. the dry run --------------------------------------------------------
+    t_phase = time.perf_counter()
+    dryrun.dryrun_multichip(1, dev)
+    log(f"dryrun_multichip(1) on {dev}: OK, "
+        f"{time.perf_counter() - t_phase:.1f} s; parallel phases "
+        f"{time.perf_counter() - t_all:.1f} s in all")
+    out["seconds"] = time.perf_counter() - t_all
+    log(json.dumps({"parallel": out}))
+    return out
 
 
 def main() -> int:
@@ -1023,7 +1331,10 @@ def main() -> int:
     gradient_phases(dev, c_scene, c_set, scene, settings, c_small, cs_set,
                     small, s_set, img_k)
 
-    # -- 18. results -----------------------------------------------------------
+    # -- 18.-21. multi-device rendering ----------------------------------------
+    parallel_phases(dev, scene, settings, c_scene, c_set)
+
+    # -- 22. results -----------------------------------------------------------
     log(json.dumps({"kernels": list(report.values())}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

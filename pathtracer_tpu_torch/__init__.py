@@ -4,7 +4,9 @@ The same wavefront engine (masked, material-sorted and tiled modes), the
 persistent engine, scene model and estimators as the JAX package, in eager
 PyTorch; the Pallas kernels (the mesh intersectors' and the scan's) become
 hand-written CUDA kernels for Hopper (csrc/), each with a plain PyTorch version beside
-its wrapper. This package imports torch and never jax.
+its wrapper. The ray pool can be sharded over local shards or the ranks of
+a torch.distributed group (parallel/). This package imports torch and never
+jax.
 """
 
 from .engine.persistent import render_persistent

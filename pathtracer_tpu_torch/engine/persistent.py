@@ -85,12 +85,14 @@ class LaneState(NamedTuple):
 
 
 def fresh_lanes(settings: RenderSettings, device, accum: Vec3 | None = None,
-                start_spp: int = 0) -> LaneState:
-    """All lanes parked at assignment `start_spp` (they respawn on the first
+                start_spp: int = 0, *, n: int | None = None) -> LaneState:
+    """`n` lanes (default: the whole image; a shard's block for the sharded
+    engine) parked at assignment `start_spp` (they respawn on the first
     step). A drained chunk boundary is a checkpoint: resuming is fresh lanes
     at (accum, start_spp), and the schedule and RNG are functions of the
     assignment index, so the resumed render is the uninterrupted one."""
-    n = settings.pixel_count
+    if n is None:
+        n = settings.pixel_count
     device = torch.device(device)
     return LaneState(
         origin=Vec3.zeros(n, device), direction=Vec3.zeros(n, device),
@@ -117,10 +119,13 @@ def _flush_round(state: LaneState, r: int, stride: int) -> LaneState:
 
 
 def _step(scene: SceneArrays, settings: RenderSettings, seed: int,
-          state: LaneState, spp_target: int, stride: int):
+          state: LaneState, spp_target: int, stride: int,
+          pixel_offset: int = 0):
     """One persistent step: respawn -> intersect -> shade -> bank. Returns
     the new state (round_buf updated in place) and the least round every
-    lane has completed, still on the device."""
+    lane has completed, still on the device. `state.pixel` is local to the
+    pool; `pixel_offset` is the global lane of its first pixel (a shard's
+    block), so the camera and the RNG see global pixel ids."""
     n = state.assign.shape[0]
     dev = state.assign.device
     lane = torch.arange(n, dtype=torch.int64, device=dev)
@@ -131,7 +136,8 @@ def _step(scene: SceneArrays, settings: RenderSettings, seed: int,
     assign = torch.where(need, state.assign + 1, state.assign)
     pixel = torch.where(need, schedule_pixel(lane, assign, stride, n),
                         state.pixel)
-    pixel_g = settings.pixel_map()(pixel)
+    pixel_g = settings.pixel_map()(pixel + pixel_offset if pixel_offset
+                                   else pixel)
 
     jitter = (rng.fast_normals_perlane(
         rng.decision_state(seed, assign, -1, pixel_g), 2)
@@ -180,11 +186,13 @@ def _step(scene: SceneArrays, settings: RenderSettings, seed: int,
 @torch.inference_mode()
 def render_persistent_chunk(scene: SceneArrays, settings: RenderSettings,
                             state: LaneState, spp_target: int,
-                            seed: int = 0, stride: int | None = None
-                            ) -> LaneState:
+                            seed: int = 0, stride: int | None = None,
+                            pixel_offset: int = 0) -> LaneState:
     """Run until every pixel has `spp_target` samples flushed into
     state.accum (updated in place). Carry the returned state into the next
-    chunk, with a larger target, to keep lanes rolling across chunks."""
+    chunk, with a larger target, to keep lanes rolling across chunks.
+    `pixel_offset`: the global lane of the pool's first pixel (a shard's
+    block, parallel/sharding.render_persistent_sharded)."""
     n = state.assign.shape[0]
     if stride is None:
         stride = pixel_stride(n)
@@ -192,7 +200,7 @@ def render_persistent_chunk(scene: SceneArrays, settings: RenderSettings,
                     | (state.assign < spp_target)).any())
     while pending or state.flushed < spp_target:
         state, min_done = _step(scene, settings, seed, state, spp_target,
-                                stride)
+                                stride, pixel_offset)
         busy = ((state.remaining_bounces > 0)
                 | (state.assign < spp_target)).any()
         min_done, busy = torch.stack([min_done, busy.to(torch.int64)]

@@ -17,7 +17,9 @@ the iteration count. Three modes, as in the JAX package:
                      is skipped (bounce_step_tiled).
 
 The RNG is keyed by pixel, so the three modes draw the same numbers for a
-path and give the same image up to float rounding.
+path and give the same image up to float rounding. A pool may be a shard's
+block of the image (`n` lanes from global lane `pixel_offset`,
+parallel/sharding.py); pixel ids, and so the random numbers, stay global.
 """
 from __future__ import annotations
 
@@ -46,15 +48,21 @@ class PathState(NamedTuple):
 
 
 def generate_paths(scene: SceneArrays, settings: RenderSettings,
-                   irng: rng.IterationRng) -> PathState:
+                   irng: rng.IterationRng, n: int | None = None,
+                   pixel_offset: int = 0) -> PathState:
     """Camera raygen -> fresh path pool, one lane per pixel
-    (pathtrace.cu:260-322)."""
-    n = settings.pixel_count
+    (pathtrace.cu:260-322). `n` lanes (default: the whole image) from
+    global lane `pixel_offset` on, for a shard's block; `irng` must carry
+    the same offset. `pixel` stays local (0..n-1), as in the JAX
+    package."""
+    if n is None:
+        n = settings.pixel_count
     dev = scene.device
     lanes = torch.arange(n, dtype=torch.int64, device=dev)
     jitter = irng.normals(-1, lanes, 2) if settings.jitter else None
     dof_u = irng.uniforms(-2, lanes, 2) if settings.dof else None
-    pixel_ids = settings.pixel_map()(lanes)
+    pixel_ids = settings.pixel_map()(lanes + pixel_offset if pixel_offset
+                                     else lanes)
     origin, direction = generate_camera_rays(
         scene.camera, settings.width, settings.height, jitter, dof_u,
         pixel_idx=pixel_ids)
@@ -195,11 +203,14 @@ def _dispatch_bounce(scene, settings, irng, depth, state, image):
 
 def render_iteration(scene: SceneArrays, settings: RenderSettings,
                      accum: Vec3, iteration: int, seed: int = 0,
-                     early_exit: bool = False) -> Vec3:
+                     early_exit: bool = False,
+                     pixel_offset: int = 0) -> Vec3:
     """One progressive-render iteration: raygen + the bounce loop.
 
     `accum` (Vec3 of [N] running sums) is updated IN PLACE, where the JAX
-    package donates it to the compiled program, and returned. early_exit
+    package donates it to the compiled program, and returned. N may be a
+    shard's block of the pool, whose first lane is global lane
+    `pixel_offset` (parallel/sharding.py). early_exit
     stops once no path is live: that test reads one flag back from the
     device per bounce (the JAX package's while_loop keeps it on the chip);
     it also selects the sorted or tiled mode where the settings ask for
@@ -210,8 +221,10 @@ def render_iteration(scene: SceneArrays, settings: RenderSettings,
     intersectors other than "jnp" return their hits as constants,
     ops/intersect.py). `render` and `render_chunk` run it without autograd.
     """
-    irng = rng.IterationRng(seed, iteration, pixel_map=settings.pixel_map())
-    state = generate_paths(scene, settings, irng)
+    irng = rng.IterationRng(seed, iteration, pixel_map=settings.pixel_map(),
+                            pixel_offset=pixel_offset)
+    state = generate_paths(scene, settings, irng, n=accum.x.shape[0],
+                           pixel_offset=pixel_offset)
     if not early_exit:
         for depth in range(settings.trace_depth):
             state = bounce_step(scene, settings, irng, depth, state, accum)
@@ -234,14 +247,19 @@ def render_iteration(scene: SceneArrays, settings: RenderSettings,
 
 @torch.inference_mode()
 def ray_survival(scene: SceneArrays, settings: RenderSettings,
-                 iteration: int, seed: int = 0) -> torch.Tensor:
+                 iteration: int, seed: int = 0, n: int | None = None,
+                 pixel_offset: int = 0) -> torch.Tensor:
     """Live-ray count per bounce depth for one iteration of the masked
     engine (the reference's PRINT_RAY_COUNT, pathtrace.cu:746-750,877-881).
     Returns [trace_depth + 1] int32 on the scene's device: the counts
-    before each bounce (index 0 = primary rays) and after the last."""
-    irng = rng.IterationRng(seed, iteration, pixel_map=settings.pixel_map())
-    state = generate_paths(scene, settings, irng)
-    image = zero_accum(settings, scene.device)
+    before each bounce (index 0 = primary rays) and after the last.
+    `n` / `pixel_offset` count a shard's block only
+    (parallel/sharding.shard_work_counts)."""
+    irng = rng.IterationRng(seed, iteration, pixel_map=settings.pixel_map(),
+                            pixel_offset=pixel_offset)
+    state = generate_paths(scene, settings, irng, n=n,
+                           pixel_offset=pixel_offset)
+    image = zero_accum(settings, scene.device, n=n)
     counts = []
     for depth in range(settings.trace_depth):
         counts.append((state.remaining_bounces > 0).sum(dtype=torch.int32))
@@ -253,17 +271,22 @@ def ray_survival(scene: SceneArrays, settings: RenderSettings,
 @torch.inference_mode()
 def render_chunk(scene: SceneArrays, settings: RenderSettings,
                  accum: Vec3, start_iteration: int, n_iters: int,
-                 seed: int = 0, early_exit: bool = True) -> Vec3:
+                 seed: int = 0, early_exit: bool = True,
+                 pixel_offset: int = 0) -> Vec3:
     """Run `n_iters` progressive iterations from `start_iteration` into
-    `accum` (in place)."""
+    `accum` (in place; a shard's block from global lane `pixel_offset`)."""
     for k in range(n_iters):
         render_iteration(scene, settings, accum, start_iteration + k,
-                         seed=seed, early_exit=early_exit)
+                         seed=seed, early_exit=early_exit,
+                         pixel_offset=pixel_offset)
     return accum
 
 
-def zero_accum(settings: RenderSettings, device) -> Vec3:
-    return Vec3.zeros(settings.pixel_count, torch.device(device))
+def zero_accum(settings: RenderSettings, device, n: int | None = None
+               ) -> Vec3:
+    """A zero image of `n` lanes (default: the whole image)."""
+    return Vec3.zeros(settings.pixel_count if n is None else n,
+                      torch.device(device))
 
 
 @torch.inference_mode()
@@ -297,9 +320,9 @@ def render(scene: SceneArrays, settings: RenderSettings,
 
 def lanes_to_image(avg: Vec3, settings: RenderSettings) -> np.ndarray:
     """Lane-space Vec3 -> [H, W, 3] numpy image (undoes the tile-major lane
-    order)."""
+    order and the shard interleave, by scatter)."""
     arr = avg.to_array().cpu().numpy()
-    if settings.tile is None:
+    if settings.tile is None and not settings.shard_interleave:
         return arr.reshape(settings.height, settings.width, 3)
     pm = np.asarray(settings.pixel_map()(
         np.arange(settings.pixel_count, dtype=np.int64)))

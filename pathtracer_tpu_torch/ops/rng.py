@@ -83,17 +83,26 @@ def fast_normals_perlane(state: torch.Tensor, m: int):
 
 class IterationRng:
     """Per-iteration RNG facade: draws come from decision_state(seed,
-    iteration, depth, PIXEL), so they are independent of lane order."""
+    iteration, depth, PIXEL) with PIXEL = pixel_map(lane + pixel_offset),
+    so they are independent of lane order and of how the pool is sharded
+    (`pixel_offset` is the global lane of a shard's first lane,
+    pathtracer_tpu/ops/rng.py:175-198). The JAX package's facade also takes
+    a `key_salt` (the shard index), which only its threefry path reads; the
+    fast path ignores it there too, and the port has no threefry path."""
 
-    __slots__ = ("seed", "iteration", "pixel_map")
+    __slots__ = ("seed", "iteration", "pixel_map", "offset")
 
-    def __init__(self, seed: int, iteration: int, pixel_map=None):
+    def __init__(self, seed: int, iteration: int, pixel_map=None,
+                 pixel_offset: int = 0):
         self.seed = int(seed)
         self.iteration = int(iteration)
         self.pixel_map = pixel_map if pixel_map is not None else (
             lambda lane: lane)
+        self.offset = int(pixel_offset)
 
     def _state(self, depth: int, lane: torch.Tensor) -> torch.Tensor:
+        if self.offset:
+            lane = lane + self.offset
         return decision_state(self.seed, self.iteration, depth,
                               self.pixel_map(lane))
 

@@ -241,17 +241,58 @@ class RenderSettings:
     fovy_deg: float = 45.0
     geom_types: tuple = ()       # static per-geom type tuple
     tile: tuple | None = None    # tile-major lane order (tile_h, tile_w)
+    # round-robin shard interleave, set to the shard count S by the sharded
+    # entry points (parallel/sharding.py): shard s's contiguous lane block
+    # is dealt over every S-th granule (_granule: ~1k consecutive base
+    # lanes) of the image instead of one band, so shards get like work.
+    # Images are the same (the RNG is keyed by pixel id; lanes_to_image
+    # inverts the composed map)
+    shard_interleave: int | None = None
 
     def pixel_map(self):
-        """lane -> pixel id function (identity when untiled)."""
+        """lane -> pixel id function: the granule round-robin over
+        shard_interleave shards, then the tile map (identity when neither is
+        set). Pure index math on ints, numpy arrays or tensors of
+        non-negative lanes."""
         if self.tile is None:
-            return lambda lane: lane
-        from ..ops.camera import tile_pixel_map
-        return tile_pixel_map(self.width, self.height, *self.tile)
+            base = lambda lane: lane  # noqa: E731
+        else:
+            from ..ops.camera import tile_pixel_map
+            base = tile_pixel_map(self.width, self.height, *self.tile)
+        S = self.shard_interleave
+        if not S or S <= 1:
+            return base
+        n_local = self.pixel_count // S
+        # >= 32 granules a shard to average over, at most ~1k lanes a granule
+        # to keep a shard's kernel blocks spatially coherent
+        G = _granule(n_local, target=max(64, min(1024, n_local // 32)))
+
+        def m(lane):
+            l, s = lane % n_local, lane // n_local
+            q, r = l // G, l % G
+            return base((q * S + s) * G + r)
+
+        return m
 
     @property
     def pixel_count(self) -> int:
         return self.width * self.height
+
+
+def _granule(n_local: int, target: int = 1024) -> int:
+    """The largest divisor of n_local not above `target`: the
+    shard-interleave granule (800x800 over 8 shards -> 1000, 80 granules a
+    shard). pathtracer_tpu/scene/types.py:675."""
+    best = 1
+    d = 1
+    while d * d <= n_local:
+        if n_local % d == 0:
+            if d <= target:
+                best = max(best, d)
+            if n_local // d <= target:
+                best = max(best, n_local // d)
+        d += 1
+    return best
 
 
 def repartition_treelet_rows(row_min, row_max, max_rows: int,

@@ -27,13 +27,18 @@ from ..utils.grad import value_and_grad, with_materials
 
 
 def albedo_loss(scene: SceneArrays, settings: RenderSettings, target: Vec3,
-                iteration: int, seed: int = 0):
+                iteration: int, seed: int = 0, pixel_offset: int = 0):
     """The fit's loss as a function of the albedo table: one fixed-depth
-    iteration, L2 against `target` (lane order) over 3 * pixel_count."""
+    iteration, L2 against `target` (lane order) over 3 * pixel_count.
+    `target` may be a shard's block of the image, whose first lane is
+    global lane `pixel_offset`: the loss is then that shard's share of the
+    whole image's loss (parallel/sharding.albedo_fit_step sums them)."""
     def loss_fn(albedo):
         img = render_iteration(with_materials(scene, color=albedo), settings,
-                               zero_accum(settings, scene.device), iteration,
-                               seed=seed, early_exit=False)
+                               zero_accum(settings, scene.device,
+                                          n=target.x.shape[0]),
+                               iteration, seed=seed, early_exit=False,
+                               pixel_offset=pixel_offset)
         d = img - target
         return (d.x * d.x + d.y * d.y + d.z * d.z).sum() / (
             3.0 * settings.pixel_count)
@@ -50,8 +55,14 @@ def albedo_fit_step(scene: SceneArrays, settings: RenderSettings,
     loss, g = value_and_grad(
         albedo_loss(scene, settings, target, iteration, seed),
         scene.materials.color)
+    return sgd_albedo(scene, g, lr), loss
+
+
+def sgd_albedo(scene: SceneArrays, g: torch.Tensor, lr: float
+               ) -> SceneArrays:
+    """The fit's update: albedo - lr * g, clipped to [0, 1]."""
     new_color = torch.clamp(scene.materials.color - lr * g, 0.0, 1.0)
-    return with_materials(scene, color=new_color), loss
+    return with_materials(scene, color=new_color)
 
 
 def perturbed_albedo(true_albedo: np.ndarray, perturb: float,
