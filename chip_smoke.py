@@ -98,7 +98,23 @@ Phases, each fatal on failure:
      bit for bit and phase 18's single-process step within GRAD_RTOL, and
      each teapot rank must launch cull, stream and packet; a worker that
      outlives WORKER_TIMEOUT is killed and fails the phase;
- 21. (d) parallel/dryrun.dryrun_multichip(1) on the card.
+ 21. (d) parallel/dryrun.dryrun_multichip(1) on the card;
+ 22. the binned pipeline's other forms: the teapot bounce-1 pool's cull and
+     stream calls recorded under EXPAND=2, EXPAND=4, SLOTS=3,
+     MIN_SUPPORT=64, STREAM_UV and CHUNK_GATE; each new kernel form (the
+     K-want cull at K = 2, 3, 4; the stream's uv, defer and gate forms)
+     against its plain version on every recorded call of its form, bit for
+     bit (the default stream on the expanded pools too), with median ms,
+     device ms and bound; then teapot 800x800 d4, one iteration under each
+     setting with the counters reset just before: each render must launch
+     its forms and give the default binned image bit for bit (STREAM_UV
+     too: tests/test_torch_binned_forms.py holds its normals to 0 ulp);
+     then the threefry path: one bounce's uniforms and raygen normals on
+     the card against the CPU's (uniforms bit for bit, normals within
+     NORMAL_ULP), Cornell 800x800 d8 with fast_rng=False beside the fast
+     path (ms/frame, device kernels of one draw), and the image means of
+     both at THREEFRY_SPP spp within THREEFRY_MEAN_TOL (tests/test_engine
+     .py:210).
 The second-to-last lines are one JSON object with every kernel's numbers and
 the card's name and power limit; the last line is the result object.
 Exits non-zero, printing no result, where torch sees no CUDA device.
@@ -161,6 +177,19 @@ WORK_ITERS = 4       # iterations of each shard_work_counts
 PERSIST_TOL = dict(rtol=1e-5, atol=1e-5)   # tests/test_torch_modes.py
 WORKER_TIMEOUT = 300  # seconds a worker process may take
 COLLECTIVE_REPS = 5
+# phase 22: the settings whose kernel forms it holds and renders
+FORM_SETTINGS = (("expand2", {"EXPAND": 2}), ("expand4", {"EXPAND": 4}),
+                 ("slots3", {"SLOTS": 3}), ("min_support64",
+                                            {"MIN_SUPPORT": 64}),
+                 ("stream_uv", {"STREAM_UV": True}),
+                 ("chunk_gate", {"CHUNK_GATE": True}))
+# form -> the setting whose recorded calls it is held on
+FORM_OF = {"cull_k2": "expand2", "cull_k4": "expand4", "cull_k3": "slots3",
+           "stream_defer": "min_support64", "stream_uv": "stream_uv",
+           "stream_gate": "chunk_gate"}
+NORMAL_ULP = 4        # tests/test_torch_threefry.py / test_torch_kernels.py
+THREEFRY_SPP = 16
+THREEFRY_MEAN_TOL = 0.03
 
 
 def leaves(tree) -> list:
@@ -384,8 +413,7 @@ def gradient_phases(dev, c_scene, c_set, scene, settings, c_small, cs_set,
     albedo_grad(scene, settings)                         # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels.LAUNCHES:
-        kernels.LAUNCHES[k] = 0
+    kernels.reset_counts()
     t0 = time.perf_counter()
     t_loss, t_grad = albedo_grad(scene, settings)
     torch.cuda.synchronize()
@@ -543,8 +571,7 @@ def parallel_phases(dev, scene, settings, c_scene, c_set) -> dict:
         """fn() with the launch counters reset just before and read just
         after: (result, ms a frame, launches). B1-B3 must launch."""
         torch.cuda.synchronize()
-        for k in kernels.LAUNCHES:
-            kernels.LAUNCHES[k] = 0
+        kernels.reset_counts()
         t0 = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
@@ -751,6 +778,210 @@ def parallel_phases(dev, scene, settings, c_scene, c_set) -> dict:
     out["seconds"] = time.perf_counter() - t_all
     log(json.dumps({"parallel": out}))
     return out
+
+
+def gate_tri_tests(args, chunk) -> tuple[int, int]:
+    """(triangle tests, chunk box tests) the gated stream makes: a lane
+    with a treelet tests each chunk box of its first batch against its
+    bound, and the rows of the chunks that pass. Exact for treelets of at
+    most GATE_ROWS rows, which read the bound once (the teapot's)."""
+    import torch
+    from pathtracer_tpu_torch.ops import binned
+    from pathtracer_tpu_torch.ops.bvh_packet import slab
+    treelet_i, _, max_rows, ox, oy, oz, dx, dy, dz, bound, tid = args
+    ti = treelet_i.reshape(-1, 4)
+    ok = (tid >= 0) & (tid < ti.shape[0])
+    if max_rows > binned.GATE_ROWS:
+        raise ValueError("gate_tri_tests counts one batch a treelet")
+    g = tid[ok].long()
+    rows = torch.clamp(ti[g, 1], max=max_rows)
+    n_chunks = -(-max_rows // 4)
+    box = chunk[g].reshape(-1, 16, 8)[:, :n_chunks]
+    t0, t1 = slab(box[..., 0:3].unbind(-1), box[..., 3:6].unbind(-1),
+                  [a[ok, None] for a in (ox, oy, oz)],
+                  [1.0 / a[ok, None] for a in (dx, dy, dz)])
+    enters = (t0 <= t1) & (t1 > 0.0) & (t0 < bound[ok, None])
+    c_rows = torch.clamp(rows[:, None] - 4 * torch.arange(
+        n_chunks, device=rows.device)[None, :], 0, 4)
+    return 6 * int((c_rows * enters).sum()), n_chunks * int(ok.sum())
+
+
+def forms_phase(dev, scene, settings, state, live, c_scene, c_set,
+                report) -> None:
+    """Phase 22 (the module docstring): adds a row of the kernels JSON line
+    for each new kernel form. Raises on any failure."""
+    import torch
+    from pathtracer_tpu_torch import render
+    from pathtracer_tpu_torch.ops import binned, kernels, rng
+    from pathtracer_tpu_torch.ops.intersect import intersect_scene
+    from pathtracer_tpu_torch.utils.kernel_bench import cuda_ms, device_ms
+    t_phase = time.perf_counter()
+    captured = {}   # (setting, "cull" | "stream") -> [(args, kwargs)]
+
+    def recording(label, name, fn):
+        def wrapper(*args, **kwargs):
+            captured.setdefault((label, name), []).append((args, kwargs))
+            return fn(*args, **kwargs)
+        return wrapper
+
+    with torch.inference_mode():
+        for label, flags in FORM_SETTINGS:
+            with mock.patch.multiple(binned, **flags), \
+                    mock.patch.object(binned, "cull", recording(
+                        label, "cull", binned.cull)), \
+                    mock.patch.object(binned, "stream", recording(
+                        label, "stream", binned.stream)):
+                intersect_scene(scene, settings.geom_types, state.origin,
+                                state.direction, bvh_impl="binned",
+                                active=live)
+        torch.cuda.synchronize()
+        src = "pathtracer_tpu_torch/csrc/"
+        for form, label in FORM_OF.items():
+            is_cull = form.startswith("cull")
+            if is_cull:
+                k = int(form[len("cull_k"):])
+                calls = [c for c in captured[(label, "cull")]
+                         if c[1].get("k", 1) == k]
+                kern, plain = binned.cull, binned.cull_plain
+                idx = ([1], [0], [1])
+            else:
+                calls = [c for c in captured[(label, "stream")] if c[1]]
+                kern, plain = binned.stream, binned.stream_plain
+                idx = ([0, 1, 2, 3], [4], [0, 1, 2, 3])
+            if not calls:
+                raise AssertionError(f"{label}: no {form} call recorded")
+            err, rows = 0.0, []
+            for args, kw in calls:
+                got = kern(*args, **kw)
+                f_idx, i_idx, ex_idx = idx
+                if len(got) == 6:           # the deferring stream's inc
+                    i_idx = i_idx + [5]
+                err = max(err, compare(form, got, plain(*args, **kw), f_idx,
+                                       i_idx, ex_idx))
+                ms = cuda_ms(lambda: kern(*args, **kw), reps=20)
+                dev_ms, _ = device_ms(lambda: kern(*args, **kw), reps=20)
+                if is_cull:
+                    ops = OPS_BOX * cull_box_tests(args)
+                    n_need = int((args[11] > 0).sum())
+                    n_bytes = need_bytes(args[:2], args[2:11], n_need,
+                                         [args[11]], got)
+                else:
+                    tid = args[-1]
+                    work = (tid >= 0) & (tid < args[0].numel() // 4)
+                    if "min_support" in kw:
+                        work = work & (got[5] == 0)
+                        ops = OPS_TRI * stream_tri_tests(
+                            args[:-1] + (torch.where(work, tid, -1),))
+                    elif "treelet_chunk" in kw:
+                        tris, boxes = gate_tri_tests(args,
+                                                     kw["treelet_chunk"])
+                        ops = OPS_TRI * tris + OPS_BOX * boxes
+                    else:
+                        ops = OPS_TRI * stream_tri_tests(args)
+                    n_need = int(work.sum())
+                    tables = args[:2] + ((kw["treelet_chunk"],)
+                                         if "treelet_chunk" in kw else ())
+                    n_bytes = need_bytes(tables, args[3:10], n_need, [tid],
+                                         got)
+                bound_ms, bound_by = bound(n_bytes, ops)
+                rows.append((ms, dev_ms, bound_ms, bound_by))
+                log(f"kernel {form} ({label}, call {len(rows) - 1}): "
+                    f"{args[3].shape[0]} lanes ({n_need} needing work), "
+                    f"bit-equal, kernel {ms:.4f} ms (device {dev_ms:.4f}), "
+                    f"bound {bound_ms:.4f} ms by {bound_by} ({n_bytes} bytes,"
+                    f" {ops} FP32 ops)")
+            args, kw = calls[0]
+            plain_ms = cuda_ms(lambda: plain(*args, **kw), reps=3, warmup=1)
+            ms, dev_ms, bound_ms, bound_by = rows[0]
+            report[form] = {
+                "name": form, "route": "cuda",
+                "source": src + ("cull.cu" if is_cull else "stream.cu"),
+                "replaces": "pathtracer_tpu/ops/binned.py:"
+                + ("290" if is_cull else "446"),
+                "launches": 0, "max_abs_err": err, "ms": ms,
+                "device_ms": dev_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None, "calls": len(calls),
+                "bounce_device_ms": sum(r[1] for r in rows)}
+            total = report[form]["bounce_device_ms"]
+            log(f"kernel {form}: plain {plain_ms:.4f} ms on the first call; "
+                f"{len(calls)} calls, device {total:.4f} ms in all")
+        # the default stream on the expanded pools (2x and 4x the lanes)
+        for label in ("expand2", "expand4"):
+            (args, kw), = [c for c in captured[(label, "stream")]]
+            compare(f"stream ({label} pool)", binned.stream(*args),
+                    binned.stream_plain(*args), [0, 1, 2, 3], [4],
+                    [0, 1, 2, 3])
+            dev_ms, _ = device_ms(lambda: binned.stream(*args), reps=10)
+            log(f"kernel stream on the {label} pool: {args[3].shape[0]} "
+                f"lanes, bit-equal, device {dev_ms:.4f} ms")
+
+    # each setting's render: its forms launch, the default image's bits
+    ref = render(scene, settings, iterations=1, seed=0)
+    for label, flags in FORM_SETTINGS:
+        with mock.patch.multiple(binned, **flags):
+            torch.cuda.synchronize()
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            img = render(scene, settings, iterations=1, seed=0)
+            torch.cuda.synchronize()
+            ms = 1000.0 * (time.perf_counter() - t0)
+            forms = dict(kernels.FORMS)
+        log(f"teapot {settings.width}x{settings.height} "
+            f"d{settings.trace_depth} binned {label}: {ms:.2f} ms for one "
+            f"iteration, launches {dict(kernels.LAUNCHES)}, forms {forms}")
+        for form in (f for f, lab in FORM_OF.items() if lab == label):
+            if forms.get(form, 0) <= 0:
+                raise AssertionError(f"{label} render never launched {form}")
+            report[form]["launches"] = forms[form]
+        if not same_bits(img, ref):
+            raise AssertionError(f"{label}: image differs from the default "
+                                 f"binned image on "
+                                 f"{int((img != ref).any(-1).sum())} pixels")
+    log("phase 22: every form's teapot image equals the default's bits")
+
+    # the threefry path: the card's draws against the CPU's (iteration 1,
+    # seed 0: bounce 0's uniforms and raygen's jitter normals)
+    n = c_set.pixel_count
+    it_key = rng.fold_in(rng.key(0), 1)
+    u_key, z_key = rng.fold_in(it_key, 0), rng.fold_in(it_key, -1)
+    u_card = rng.uniforms(u_key, n, 4, dev).cpu().numpy()
+    if not same_bits(u_card, rng.uniforms(u_key, n, 4, "cpu").numpy()):
+        raise AssertionError("threefry uniforms differ card vs CPU")
+    z_card = rng.normals(z_key, n, 2, dev).cpu().numpy()
+    z_cpu = rng.normals(z_key, n, 2, "cpu").numpy()
+    ulp = np.abs(z_card.view(np.int32).astype(np.int64)
+                 - z_cpu.view(np.int32).astype(np.int64))
+    if ulp.max() > NORMAL_ULP:
+        raise AssertionError(f"threefry normals {ulp.max()} ulp off")
+    log(f"threefry draws, {n} lanes: uniforms bit-equal card vs CPU; "
+        f"normals max {int(ulp.max())} ulp, {float((ulp > 0).mean()):.4%} "
+        "differ")
+    t_set = dataclasses.replace(c_set, fast_rng=False)
+    irng = rng.IterationRng(0, 1, fast=False)
+    lanes = torch.arange(n, device=dev)
+    draw_ms = cuda_ms(lambda: irng.uniforms(3, lanes, 4), reps=10)
+    draw_dev, _ = device_ms(lambda: irng.uniforms(3, lanes, 4), reps=5)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        irng.uniforms(3, lanes, 4)
+        torch.cuda.synchronize()
+    draw_kernels = sum(e.count for e in prof.key_averages()
+                       if e.self_device_time_total > 0)
+    imgs, frame = {}, {}
+    for name, st in (("fast", c_set), ("threefry", t_set)):
+        imgs[name], frame[name] = render_ms(render, c_scene, st,
+                                            THREEFRY_SPP)
+    means = {k: float(v.mean()) for k, v in imgs.items()}
+    log(f"threefry: one bounce's draw (uniforms {n}x4) {draw_ms:.4f} ms "
+        f"(device {draw_dev:.4f} ms, {draw_kernels} device kernels); "
+        f"cornell {c_set.width}x{c_set.height} d{c_set.trace_depth} "
+        f"{frame['threefry']:.2f} ms/frame against {frame['fast']:.2f} on "
+        f"the fast path ({THREEFRY_SPP} spp); image means {means}")
+    if not np.isfinite(imgs["threefry"]).all() or abs(
+            means["threefry"] - means["fast"]) >= THREEFRY_MEAN_TOL:
+        raise AssertionError("threefry image mean off the fast path's")
+    log(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1081,8 +1312,7 @@ def main() -> int:
     iters = 4
     render(scene, settings, iterations=1, seed=0)       # warm-up
     torch.cuda.synchronize()
-    for k in kernels.LAUNCHES:
-        kernels.LAUNCHES[k] = 0
+    kernels.reset_counts()
     t0 = time.perf_counter()
     img = render(scene, settings, iterations=iters, seed=0)
     torch.cuda.synchronize()
@@ -1138,8 +1368,7 @@ def main() -> int:
                 stack.enter_context(mock.patch.object(module, attr, value))
             render(scene, p_set, iterations=1, seed=0)       # warm-up
             torch.cuda.synchronize()
-            for k in kernels.LAUNCHES:
-                kernels.LAUNCHES[k] = 0
+            kernels.reset_counts()
             t0 = time.perf_counter()
             img = render(scene, p_set, iterations=p_iters, seed=0)
             torch.cuda.synchronize()
@@ -1242,8 +1471,7 @@ def main() -> int:
         keys = torch.where(t > 0.0, mat, 0)
         n_bits = max(1, int(keys.max()).bit_length())
         torch.cuda.synchronize()
-        for k in kernels.LAUNCHES:
-            kernels.LAUNCHES[k] = 0
+        kernels.reset_counts()
         packed, count = scan.compact(state, live)
         n_compact = kernels.LAUNCHES["scan"]
         s_keys, s_state = scan.sort_by_key(keys, state, n_bits=n_bits)
@@ -1291,8 +1519,7 @@ def main() -> int:
 
             fn(sc, m_set, iterations=1, seed=0)              # warm-up
             torch.cuda.synchronize()
-            for k in kernels.LAUNCHES:
-                kernels.LAUNCHES[k] = 0
+            kernels.reset_counts()
             with mock.patch.object(persistent, "_step", counted):
                 t0 = time.perf_counter()
                 img = fn(sc, m_set, iterations=MODE_ITERS, seed=0)
@@ -1334,7 +1561,10 @@ def main() -> int:
     # -- 18.-21. multi-device rendering ----------------------------------------
     parallel_phases(dev, scene, settings, c_scene, c_set)
 
-    # -- 22. results -----------------------------------------------------------
+    # -- 22. the binned pipeline's other forms, the threefry path -------------
+    forms_phase(dev, scene, settings, state, live, c_scene, c_set, report)
+
+    # -- 23. results -----------------------------------------------------------
     log(json.dumps({"kernels": list(report.values())}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
-// Treelet cull: per ray, the nearest not-yet-enumerated wanted treelet.
+// Treelet cull: per ray, the K nearest not-yet-enumerated wanted treelets.
 //
 // Replaces the TPU kernel `_cull_kernel` (pathtracer_tpu/ops/binned.py:290,
-// launched at :839) with k_wants = 1. Per lane: among the treelets whose box
-// the ray enters closer than `bound`, the smallest (entry_t, id) strictly
-// after (pt0, pid); (TREELET_NONE, FLT_MAX) when there is none or the lane is
-// not live.
+// launched at :839) for k_wants = K = 1..8. Per lane: among the treelets
+// whose box the ray enters closer than `bound`, the K smallest (entry_t, id)
+// strictly after (pt0, pid), in that order, in K output planes; the slots
+// left over hold (TREELET_NONE, FLT_MAX), and all of them when the lane is
+// not live. K = 1 feeds the pass-sequential pipeline, K > 1 the expansion
+// and slot pipelines (binned.py:956-1049).
 //
 // What bounds it on an H100: the slab tests, about 25 FP32 operations (some
 // 45 instructions) per (ray, treelet) and per (ray, super row); the tables
@@ -46,6 +48,14 @@
 //      treelet's slab interval lies inside its super box's, in float
 //      arithmetic too ((b - o) * inv is monotone in b): the gate only skips
 //      work, and (id, t0) per lane is the plain version's.
+//   4. K > 1 (a template argument, so the K = 1 kernel above is compiled as
+//      it was): each lane keeps its K least (t0, id) in registers, sorted,
+//      by the TPU kernel's bubble insertion (binned.py:398-416): a
+//      candidate sinks through the slots, displacing each farther entry,
+//      which sinks on. The ray's two lanes then merge their lists, each
+//      inserting the other's K entries (the ids differ, so both get the K
+//      least of the union), and the t0 of every slot is recomputed with
+//      common.cuh slab, as for K = 1.
 #include "common.cuh"
 
 namespace {
@@ -57,6 +67,7 @@ constexpr int SMEM_MAX_ROWS = 80;  // 80 * (512 + 32) bytes < 48 KB
 constexpr int SPLIT = 2;
 constexpr int RAYS = 32 / SPLIT;         // rays a warp takes at a time
 constexpr int CHUNK = THREADS / SPLIT;   // pool lanes a block takes at a time
+constexpr int MAX_K = 8;                 // wants a lane may ask for
 
 // The six box fields (lo xyz, hi xyz) of an 8-float record: two 16-byte
 // loads from shared memory, or six cached loads from device memory.
@@ -71,7 +82,31 @@ __device__ __forceinline__ void box(const float* rec, float (&b)[6]) {
   }
 }
 
-template <bool kSmem>
+// (t0, id) precedes (st, sid) in the enumeration order
+__device__ __forceinline__ bool before(float t0, int id, float st, int sid) {
+  return t0 < st || (t0 == st && id < sid);
+}
+
+// Bubble-insert the candidate (t0, id) into the K sorted slots (st, sid):
+// it sinks until it displaces a farther entry, which sinks on
+// (binned.py:398-416).
+template <int K>
+__device__ __forceinline__ void insert(float t0, int id, float (&st)[K],
+                                       int (&sid)[K]) {
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    if (before(t0, id, st[s], sid[s])) {
+      const float pt = st[s];
+      const int pi = sid[s];
+      st[s] = t0;
+      sid[s] = id;
+      t0 = pt;
+      id = pi;
+    }
+  }
+}
+
+template <bool kSmem, int K>
 __global__ void __launch_bounds__(THREADS)
 cull_kernel(const float* __restrict__ tre_f, const float* __restrict__ sup,
             int n_rows, const float* __restrict__ ox,
@@ -102,8 +137,11 @@ cull_kernel(const float* __restrict__ tre_f, const float* __restrict__ sup,
       // block-uniform: stage at the first chunk with a live lane
       if (!__syncthreads_or(is_live)) {
         if (write) {
-          out_id[i] = pt::TREELET_NONE;
-          out_t0[i] = pt::FLT_MAX_F;
+#pragma unroll
+          for (int s = 0; s < K; ++s) {
+            out_id[s * static_cast<long long>(n) + i] = pt::TREELET_NONE;
+            out_t0[s * static_cast<long long>(n) + i] = pt::FLT_MAX_F;
+          }
         }
         continue;
       }
@@ -114,8 +152,14 @@ cull_kernel(const float* __restrict__ tre_f, const float* __restrict__ sup,
       __syncthreads();
       staged = true;
     }
-    int best_id = pt::TREELET_NONE;
-    float best_t0 = pt::FLT_MAX_F;
+    // slot s holds the s-th least (t0, id) found so far
+    int best_id[K];
+    float best_t0[K];
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      best_id[s] = pt::TREELET_NONE;
+      best_t0[s] = pt::FLT_MAX_F;
+    }
     if (__any_sync(pt::FULL, is_live)) {
       const long long j = in ? i : 0;
       const float o_x = ox[j], o_y = oy[j], o_z = oz[j];
@@ -144,41 +188,70 @@ cull_kernel(const float* __restrict__ tre_f, const float* __restrict__ sup,
                             o_z, ix, iy, iz, t0, t1) &&
               t0 <= t1 && t1 > 0.0f && t0 < b;
           const bool after = t0 > p_t0 || (t0 == p_t0 && tid > p_id);
-          const bool closer =
-              t0 < best_t0 || (t0 == best_t0 && tid < best_id);
-          if (want && after && closer) {
-            best_t0 = t0;
-            best_id = tid;
+          if constexpr (K == 1) {
+            const bool closer =
+                t0 < best_t0[0] || (t0 == best_t0[0] && tid < best_id[0]);
+            if (want && after && closer) {
+              best_t0[0] = t0;
+              best_id[0] = tid;
+            }
+          } else {
+            if (want && after) insert<K>(t0, tid, best_t0, best_id);
           }
         }
       }
-      // the least (t0, id) of the ray's SPLIT lanes (-0 == +0 here: the
-      // winner's t0 is recomputed below)
+      if constexpr (K == 1) {
+        // the least (t0, id) of the ray's SPLIT lanes (-0 == +0 here: the
+        // winner's t0 is recomputed below)
 #pragma unroll
-      for (int off = 1; off < SPLIT; off *= 2) {
-        const float o_t0 = __shfl_xor_sync(pt::FULL, best_t0, off);
-        const int o_id = __shfl_xor_sync(pt::FULL, best_id, off);
-        if (o_t0 < best_t0 || (o_t0 == best_t0 && o_id < best_id)) {
-          best_t0 = o_t0;
-          best_id = o_id;
+        for (int off = 1; off < SPLIT; off *= 2) {
+          const float o_t0 = __shfl_xor_sync(pt::FULL, best_t0[0], off);
+          const int o_id = __shfl_xor_sync(pt::FULL, best_id[0], off);
+          if (o_t0 < best_t0[0] ||
+              (o_t0 == best_t0[0] && o_id < best_id[0])) {
+            best_t0[0] = o_t0;
+            best_id[0] = o_id;
+          }
+        }
+      } else {
+        // merge the ray's SPLIT lists: each lane inserts the other's
+#pragma unroll
+        for (int off = 1; off < SPLIT; off *= 2) {
+          float o_t0[K];
+          int o_id[K];
+#pragma unroll
+          for (int s = 0; s < K; ++s) {
+            o_t0[s] = __shfl_xor_sync(pt::FULL, best_t0[s], off);
+            o_id[s] = __shfl_xor_sync(pt::FULL, best_id[s], off);
+          }
+#pragma unroll
+          for (int s = 0; s < K; ++s) insert<K>(o_t0[s], o_id[s], best_t0,
+                                                best_id);
         }
       }
-      if (write && best_id != pt::TREELET_NONE) {
+      if (write) {
         // the output t0 from the plain version's slab (its zero sign)
-        float e[6], t1;
-        box<kSmem>(tf + (best_id / TREELETS_PER_FROW) * pt::ROW +
-                       8 * (best_id % TREELETS_PER_FROW), e);
-        pt::slab(e, e + 3, o_x, o_y, o_z, ix, iy, iz, best_t0, t1);
+#pragma unroll
+        for (int s = 0; s < K; ++s) {
+          if (best_id[s] == pt::TREELET_NONE) continue;
+          float e[6], t1;
+          box<kSmem>(tf + (best_id[s] / TREELETS_PER_FROW) * pt::ROW +
+                         8 * (best_id[s] % TREELETS_PER_FROW), e);
+          pt::slab(e, e + 3, o_x, o_y, o_z, ix, iy, iz, best_t0[s], t1);
+        }
       }
     }
     if (write) {
-      out_id[i] = best_id;
-      out_t0[i] = best_t0;
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        out_id[s * static_cast<long long>(n) + i] = best_id[s];
+        out_t0[s * static_cast<long long>(n) + i] = best_t0[s];
+      }
     }
   }
 }
 
-template <bool kSmem>
+template <bool kSmem, int K>
 cudaError_t launch(int device, cudaStream_t s, const float* tre_f,
                    const float* sup, int n_rows, const float* const* planes,
                    const int* pid, const int* live, int* out_id,
@@ -188,28 +261,48 @@ cudaError_t launch(int device, cudaStream_t s, const float* tre_f,
             : 0;
   int resident = 0;
   const cudaError_t err = pt::resident_blocks(
-      reinterpret_cast<const void*>(cull_kernel<kSmem>), device, THREADS,
+      reinterpret_cast<const void*>(cull_kernel<kSmem, K>), device, THREADS,
       smem, resident);
   if (err != cudaSuccess) return err;
   const long long need = (static_cast<long long>(n) + CHUNK - 1) / CHUNK;
   const int blocks = static_cast<int>(need < resident ? need : resident);
-  cull_kernel<kSmem><<<blocks, THREADS, smem, s>>>(
+  cull_kernel<kSmem, K><<<blocks, THREADS, smem, s>>>(
       tre_f, sup, n_rows, planes[0], planes[1], planes[2], planes[3],
       planes[4], planes[5], planes[6], planes[7], pid, live, out_id, out_t0,
       n);
   return cudaGetLastError();
 }
 
+template <bool kSmem>
+cudaError_t launch_k(int k, int device, cudaStream_t s, const float* tre_f,
+                     const float* sup, int n_rows, const float* const* planes,
+                     const int* pid, const int* live, int* out_id,
+                     float* out_t0, int n) {
+#define PT_CULL_K(K)                                                      \
+  case K:                                                                 \
+    return launch<kSmem, K>(device, s, tre_f, sup, n_rows, planes, pid,   \
+                            live, out_id, out_t0, n);
+  switch (k) {
+    PT_CULL_K(1) PT_CULL_K(2) PT_CULL_K(3) PT_CULL_K(4)
+    PT_CULL_K(5) PT_CULL_K(6) PT_CULL_K(7) PT_CULL_K(8)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef PT_CULL_K
+}
+
 }  // namespace
 
+// out_id / out_t0: k planes of n lanes each, slot s at [s * n, s * n + n)
 extern "C" int pt_cull(int device, const void* tre_f, const void* sup,
                        int n_rows, const void* ox, const void* oy,
                        const void* oz,
                        const void* dx, const void* dy, const void* dz,
                        const void* bound, const void* pt0, const void* pid,
                        const void* live, void* out_id, void* out_t0, int n,
-                       void* stream) {
+                       int k, void* stream) {
   if (n <= 0) return 0;
+  if (k < 1 || k > MAX_K) return static_cast<int>(cudaErrorInvalidValue);
   // the library has its own CUDA runtime: select the tensors' device
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
@@ -223,9 +316,9 @@ extern "C" int pt_cull(int device, const void* tre_f, const void* sup,
   float* ot0 = static_cast<float*>(out_t0);
   const cudaError_t err =
       n_rows <= SMEM_MAX_ROWS
-          ? launch<true>(device, s, f(tre_f), f(sup), n_rows, planes, ipid,
-                         ilive, oid, ot0, n)
-          : launch<false>(device, s, f(tre_f), f(sup), n_rows, planes, ipid,
-                          ilive, oid, ot0, n);
+          ? launch_k<true>(k, device, s, f(tre_f), f(sup), n_rows, planes,
+                           ipid, ilive, oid, ot0, n)
+          : launch_k<false>(k, device, s, f(tre_f), f(sup), n_rows, planes,
+                            ipid, ilive, oid, ot0, n);
   return static_cast<int>(err);
 }

@@ -19,7 +19,10 @@ the wrapped product, floor-mod n. The port reproduces that wrap in int64
 (_wrap_i32), so its schedule stays the JAX package's at any spp.
 
 The RNG is keyed on (seed, sample, depth, pixel) (ops/rng.decision_state),
-so this engine draws the same numbers for a sample as the wavefront engine,
+always the fast hash streams, whatever RenderSettings.fast_rng says (as in
+the JAX package, engine/persistent.py:160-181: a lane's stream must not
+depend on which lane row it sits in), so this engine draws the same numbers
+for a sample as the wavefront engine's fast path,
 and the images agree up to the order of float additions. The JAX package's
 while_loop is a host loop here: each step reads its loop condition and the
 least completed round back in one device-to-host copy.

@@ -16,10 +16,16 @@ the iteration count. Three modes, as in the JAX package:
                      tiles of compact_tile lanes and a tile with no live lane
                      is skipped (bounce_step_tiled).
 
-The RNG is keyed by pixel, so the three modes draw the same numbers for a
-path and give the same image up to float rounding. A pool may be a shard's
-block of the image (`n` lanes from global lane `pixel_offset`,
-parallel/sharding.py); pixel ids, and so the random numbers, stay global.
+The fast RNG (the default) is keyed by pixel, so the three modes draw the
+same numbers for a path and give the same image up to float rounding. A
+pool may be a shard's block of the image (`n` lanes from global lane
+`pixel_offset`, parallel/sharding.py); pixel ids, and so the random
+numbers, stay global. With RenderSettings.fast_rng=False the draws come
+from the threefry streams by lane row, as in the JAX package (ops/rng.py):
+the sorted mode then draws for its permuted lanes, the tiled mode folds the
+tile index into each tile's draws, and a shard's `key_salt` (its index)
+into its key, so those images differ from the masked one as the JAX
+package's do.
 """
 from __future__ import annotations
 
@@ -163,7 +169,8 @@ def bounce_step_tiled(scene: SceneArrays, settings: RenderSettings,
         t, normal, mat_id = intersect_scene(
             scene, settings.geom_types, s.origin, s.direction,
             bvh_impl=settings.bvh_impl)
-        u = irng.uniforms(depth, s.pixel, 5 if settings.rr_start else 4)
+        u = irng.uniforms(depth, s.pixel, 5 if settings.rr_start else 4,
+                          salt=k)
         origin, direction, color, rb = shade(
             s.origin, s.direction, s.color, s.remaining_bounces,
             t, normal, mat_id, scene.materials, u,
@@ -204,13 +211,14 @@ def _dispatch_bounce(scene, settings, irng, depth, state, image):
 def render_iteration(scene: SceneArrays, settings: RenderSettings,
                      accum: Vec3, iteration: int, seed: int = 0,
                      early_exit: bool = False,
-                     pixel_offset: int = 0) -> Vec3:
+                     pixel_offset: int = 0, key_salt=None) -> Vec3:
     """One progressive-render iteration: raygen + the bounce loop.
 
     `accum` (Vec3 of [N] running sums) is updated IN PLACE, where the JAX
     package donates it to the compiled program, and returned. N may be a
     shard's block of the pool, whose first lane is global lane
-    `pixel_offset` (parallel/sharding.py). early_exit
+    `pixel_offset` (parallel/sharding.py), and `key_salt` is folded into
+    the threefry key (the shard index; the fast RNG ignores it). early_exit
     stops once no path is live: that test reads one flag back from the
     device per bounce (the JAX package's while_loop keeps it on the chip);
     it also selects the sorted or tiled mode where the settings ask for
@@ -222,7 +230,8 @@ def render_iteration(scene: SceneArrays, settings: RenderSettings,
     ops/intersect.py). `render` and `render_chunk` run it without autograd.
     """
     irng = rng.IterationRng(seed, iteration, pixel_map=settings.pixel_map(),
-                            pixel_offset=pixel_offset)
+                            pixel_offset=pixel_offset,
+                            fast=settings.fast_rng, key_salt=key_salt)
     state = generate_paths(scene, settings, irng, n=accum.x.shape[0],
                            pixel_offset=pixel_offset)
     if not early_exit:
@@ -248,15 +257,16 @@ def render_iteration(scene: SceneArrays, settings: RenderSettings,
 @torch.inference_mode()
 def ray_survival(scene: SceneArrays, settings: RenderSettings,
                  iteration: int, seed: int = 0, n: int | None = None,
-                 pixel_offset: int = 0) -> torch.Tensor:
+                 pixel_offset: int = 0, key_salt=None) -> torch.Tensor:
     """Live-ray count per bounce depth for one iteration of the masked
     engine (the reference's PRINT_RAY_COUNT, pathtrace.cu:746-750,877-881).
     Returns [trace_depth + 1] int32 on the scene's device: the counts
     before each bounce (index 0 = primary rays) and after the last.
-    `n` / `pixel_offset` count a shard's block only
+    `n` / `pixel_offset` / `key_salt` count a shard's block only
     (parallel/sharding.shard_work_counts)."""
     irng = rng.IterationRng(seed, iteration, pixel_map=settings.pixel_map(),
-                            pixel_offset=pixel_offset)
+                            pixel_offset=pixel_offset,
+                            fast=settings.fast_rng, key_salt=key_salt)
     state = generate_paths(scene, settings, irng, n=n,
                            pixel_offset=pixel_offset)
     image = zero_accum(settings, scene.device, n=n)
@@ -272,13 +282,14 @@ def ray_survival(scene: SceneArrays, settings: RenderSettings,
 def render_chunk(scene: SceneArrays, settings: RenderSettings,
                  accum: Vec3, start_iteration: int, n_iters: int,
                  seed: int = 0, early_exit: bool = True,
-                 pixel_offset: int = 0) -> Vec3:
+                 pixel_offset: int = 0, key_salt=None) -> Vec3:
     """Run `n_iters` progressive iterations from `start_iteration` into
-    `accum` (in place; a shard's block from global lane `pixel_offset`)."""
+    `accum` (in place; a shard's block from global lane `pixel_offset`,
+    its threefry key salted with `key_salt`)."""
     for k in range(n_iters):
         render_iteration(scene, settings, accum, start_iteration + k,
                          seed=seed, early_exit=early_exit,
-                         pixel_offset=pixel_offset)
+                         pixel_offset=pixel_offset, key_salt=key_salt)
     return accum
 
 

@@ -56,12 +56,14 @@ def slab(lo, hi, o, inv):
     return t0, t1
 
 
-def closest_hit(tri_tab, idx, mask, ox, oy, oz, dx, dy, dz, t_min):
+def closest_hit(tri_tab, idx, mask, ox, oy, oz, dx, dy, dz, t_min,
+                uv: bool = False):
     """Moller-Trumbore of lane l against triangles tri_tab[idx[l, k]]
     (where mask[l, k]), keeping the first triangle of smallest t strictly
     below t_min[l]: the result of testing them one after another in k order
     with strict `<`, as the kernels do. Returns (hit, t, raw nx, ny, nz,
-    mat) of the winner; the other values are don't-cares where ~hit."""
+    mat) of the winner, or with `uv` (hit, t, u, v, 0, its triangle index
+    idx[l, k]); the other values are don't-cares where ~hit."""
     rec = tri_tab[idx]                      # [L, K, 20]
     f = lambda c: rec[..., c]
     o = [a[:, None] for a in (ox, oy, oz)]
@@ -88,6 +90,9 @@ def closest_hit(tri_tab, idx, mask, ox, oy, oz, dx, dy, dz, t_min):
     hit = ok.any(dim=1)
     pick = lambda x: torch.gather(x, 1, k)[:, 0]
     uw, vw = pick(u), pick(v)
+    if uv:
+        return (hit, pick(t), uw, vw, torch.zeros_like(uw),
+                pick(idx).to(torch.int32))
     w = 1.0 - uw - vw
     nrm = [w * pick(f(9 + c)) + uw * pick(f(12 + c)) + vw * pick(f(15 + c))
            for c in range(3)]

@@ -13,7 +13,13 @@ launches its kernel, and nowhere else, so a run can show which kernels its
 main path went through. A call counts once whatever the number of device
 kernels it launches: "packet", "wide_push" and "wide_mask" are each a
 compaction kernel and a walk over the compacted lanes (csrc/packet.cu,
-wide.cu).
+wide.cu), and the deferring stream is a support count and the stream.
+The cull and the stream have several forms each, under one key each:
+"cull" counts every K of the K-want cull and "stream" every form of the
+stream. `FORMS` logs the form of each of their launches beside it:
+"cull_k1" ... "cull_k8", and "stream_default" or "stream" followed by
+"_uv", "_defer" and "_gate" for the flags a launch has on (e.g.
+"stream_defer_gate"). `reset_counts()` zeroes both.
 
 No kernel has a backward, and none needs an autograd.Function: as the
 Pallas kernels have no AD rule in the JAX package, the mesh intersectors
@@ -46,15 +52,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES = {"cull": 0, "stream": 0, "packet": 0, "wide_push": 0,
             "wide_mask": 0, "brute": 0, "scan": 0}
+FORMS: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
-    # device, tables, table rows, 10 ray planes, 2 outputs, n, stream
-    "pt_cull": [_I, _P, _P, _I] + [_P] * 10 + [_P, _P, _I, _P],
-    # device, treelet_i, n_treelets, tris, tri rows, max_rows, 8 ray planes,
-    # 5 outputs, n, stream
-    "pt_stream": [_I, _P, _I, _P, _I, _I] + [_P] * 8 + [_P] * 5 + [_I, _P],
+    # device, tables, table rows, 10 ray planes, 2 outputs of k planes, n,
+    # k, stream
+    "pt_cull": [_I, _P, _P, _I] + [_P] * 10 + [_P, _P, _I, _I, _P],
+    # device, treelet_i, n_treelets, tris, tri rows, max_rows, chunk table
+    # (or null), uv, min_support, 8 ray planes, 5 outputs, inc (or null), n,
+    # stream
+    "pt_stream": [_I, _P, _I, _P, _I, _I, _P, _I, _I] + [_P] * 8 + [_P] * 5
+                 + [_P, _I, _P],
     # device, nodes_f, nodes_i, n_nodes, tris, root, 8 ray planes,
     # 5 outputs, scratch, smem_nodes, n, stream
     "pt_packet": [_I, _P, _P, _I, _P, _I] + [_P] * 8 + [_P] * 5
@@ -188,10 +198,10 @@ def current_stream(device: torch.device) -> int:
 
 
 def launch(name: str, device: torch.device, *args,
-           stream: int | None = None) -> None:
+           stream: int | None = None, form: str | None = None) -> None:
     """Call pt_<name> on `stream` (default: `device`'s current stream) and
-    count the launch; raise on a CUDA error reported right after the
-    launch."""
+    count the launch, and its `form` in FORMS where given; raise on a CUDA
+    error reported right after the launch."""
     fn = getattr(library(), "pt_" + name)
     if stream is None:
         stream = current_stream(device)
@@ -199,6 +209,15 @@ def launch(name: str, device: torch.device, *args,
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
+    if form is not None:
+        FORMS[form] = FORMS.get(form, 0) + 1
+
+
+def reset_counts() -> None:
+    """Zero LAUNCHES and forget FORMS."""
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    FORMS.clear()
 
 
 def hit_outputs(n: int, device: torch.device):

@@ -18,10 +18,12 @@ A `RayMesh` is one of two kinds:
 
 Shard s owns the global lanes [s * n_local, (s + 1) * n_local), and every
 sharded entry point sets `settings.shard_interleave` to the shard count
-(`_interleaved`), so those lanes are spread over the image. The RNG is
-keyed on (seed, iteration, depth, global pixel id), and each pixel is
+(`_interleaved`), so those lanes are spread over the image. The fast RNG
+is keyed on (seed, iteration, depth, global pixel id), and each pixel is
 traced and summed only in its own shard, in iteration order: a sharded
-image equals the single-device image bit for bit. The per-lane closest hit
+image equals the single-device image bit for bit. (With fast_rng=False a
+shard draws its own threefry stream, its key salted with its index, as in
+the JAX package: the image is then another sample.) The per-lane closest hit
 of every intersector does not depend on the other lanes of the pool. Only
 the gradient's sum over shards adds floats in another order.
 
@@ -221,7 +223,7 @@ def render_chunk_sharded(scene, settings: RenderSettings, mesh: RayMesh,
     settings = _interleaved(settings, mesh.n_shards)
     for sc, s, a in zip(_replicas(scene, mesh), mesh.shards, accum):
         render_chunk(sc, settings, a, start_iteration, n_iters, seed,
-                     early_exit, pixel_offset=s * n_local)
+                     early_exit, pixel_offset=s * n_local, key_salt=s)
     return accum
 
 
@@ -356,7 +358,8 @@ def albedo_fit_step(scene: SceneArrays, settings: RenderSettings,
     for sc, s, tgt in zip(replicate(scene, mesh), mesh.shards, target):
         l_s, g_s = value_and_grad(
             albedo_loss(sc, settings, tgt, iteration, seed,
-                        pixel_offset=s * n_local), sc.materials.color)
+                        pixel_offset=s * n_local, key_salt=s),
+            sc.materials.color)
         l_s, g_s = l_s.to(scene.device), g_s.to(scene.device)
         loss, g = (l_s, g_s) if loss is None else (loss + l_s, g + g_s)
     if mesh.group is not None:

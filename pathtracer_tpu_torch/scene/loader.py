@@ -321,6 +321,7 @@ def scene_from_jax_arrays(arrays: dict, device) -> SceneArrays:
         tris_packed=t("tris_packed"),
         treelet_f=t("treelet_f"), treelet_i=t("treelet_i"),
         treelet_super=t("treelet_super"),
+        treelet_chunk=t("treelet_chunk"), tri_attrs=t("tri_attrs"),
         tris_mxu_c=t("tris_mxu_c"), tris_mxu_n=t("tris_mxu_n"),
         tris_brute=torch.as_tensor(brute, device=device),
         nodes8_f=t("nodes8_f"), nodes8_i=t("nodes8_i"), tris8=t("tris8"),

@@ -7,8 +7,9 @@ package's. The packed `[rows, 128]` tables keep the JAX layouts byte for byte,
 so the CUDA kernels (ops/binned.py, ops/bvh_packet.py) read exactly the tables
 the Pallas kernels read, and the tests can hold one against the other.
 
-Left out: the per-chunk gate table and the per-triangle attribute table,
-which only ablations not ported yet read. The brute-force tables, the 8-wide
+The binned intersector's ablation forms read two more tables, built at load
+as the JAX package builds them: `treelet_chunk` (the chunk gate's boxes) and
+`tri_attrs` (the uv stream's gather table). The brute-force tables, the 8-wide
 BVH tables and the per-triangle SoA table of the "jnp" walk are built on
 request (`brute_tables` / `wide_data` / `triangle_table`, which the loader
 sets for bvh_impl="jnp"); otherwise they are placeholders (the JAX package
@@ -34,6 +35,9 @@ TREELETS_PER_FROW = 16  # 16 treelets x 8 f32 fields (bounds) = 128 lanes
 TREELETS_PER_IROW = 32  # 32 treelets x 4 i32 fields (row range) = 128 lanes
 TREELET_NONE = 0x3FFFFFF  # "no treelet" id sentinel
 MAX_TRE_ROWS = 16         # default rows-per-treelet bound
+CHUNK_GATE_ROWS = 4       # triangle rows per chunk-gate box (treelet_chunk):
+#                           the gated stream slab-tests a chunk's union box
+#                           against the ray's best so far before its tests
 WIDE_NODES_PER_BLOCK = 16  # wide nodes per (8, 128) table block: node j's
 #                            field f at lane j*8+f, child c at row c
 WIDE_GROUPS_PER_BLOCK = 6  # 8-tri groups per (8, 128) tris8 block: group g
@@ -179,6 +183,8 @@ class SceneArrays:
     treelet_f: torch.Tensor      # [ceil(T/16), 128] f32 bounds
     treelet_i: torch.Tensor      # [ceil(T/32), 128] i32 row ranges
     treelet_super: torch.Tensor  # [ceil(T/16), 128] f32 per-row union bounds
+    treelet_chunk: torch.Tensor  # [T_pad8, 128] f32 per-chunk gate boxes
+    tri_attrs: torch.Tensor      # [Nt_pad, 16] f32 (n0, n1, n2, mat)
     # brute-force tables (pack_tris_mxu); zero rows unless loaded with
     # brute_tables=True
     tris_mxu_c: torch.Tensor     # [Tt*4*512, 16] f32 linear-form coefficients
@@ -208,8 +214,7 @@ class SceneArrays:
 
 @dataclasses.dataclass(frozen=True)
 class RenderSettings:
-    """Static, hashable render configuration (the JAX package's, minus the
-    threefry switch: the port draws from the PCG hash streams only)."""
+    """Static, hashable render configuration (the JAX package's)."""
 
     width: int
     height: int
@@ -223,6 +228,9 @@ class RenderSettings:
     # bounce_step_tiled); compact_tile must divide the pool
     compact: bool = False
     compact_tile: int = 16384    # lanes per skippable tile (compact mode)
+    # the RNG: the PCG hash streams keyed on pixels (True), or the threefry
+    # streams of jax.random, drawn by lane row (False; ops/rng.py)
+    fast_rng: bool = True
     # material-table capability flags (set by the loader): BSDF branches no
     # material can take are not computed (ops/bsdf.py scatter_ray)
     any_glossy: bool = True
@@ -349,6 +357,10 @@ def pack_treelet_tables(nodes: dict, tris: dict, max_rows: int = None):
       treelet_i [ceil(T/32), 128] i32: 4 fields (row_first, n_rows, pad, pad)
       treelet_super [ceil(T/16), 128] f32: the union box of each treelet_f
           row at lanes 0..5
+      treelet_chunk [T_pad8, 128] f32: row g holds the union boxes of
+          treelet g's CHUNK_GATE_ROWS-row chunks, chunk c (relative rows
+          [4c, 4c + 4)) at lanes c*8 .. c*8+5 as (min xyz, max xyz); empty
+          and past-the-end chunks are inverted boxes
     Padding treelets carry inverted boxes (min=+inf) and n_rows=0.
     Returns numpy arrays.
     """
@@ -412,7 +424,22 @@ def pack_treelet_tables(nodes: dict, tris: dict, max_rows: int = None):
     sup = np.zeros((n_rows_f, 128), np.float32)
     sup[:, 0:3] = grp[:, :, 0:3].min(axis=1)
     sup[:, 3:6] = grp[:, :, 3:6].max(axis=1)
-    return packed_f, packed_i, sup
+
+    n_chunks = -(-max_rows // CHUNK_GATE_ROWS)
+    assert n_chunks * 8 <= 128, (
+        "treelet rows bound too large for one chunk-gate row per treelet")
+    chunk = _inverted_boxes((-(-max(T, 1) // 8) * 8, 128))
+    row0 = first // TRIS_PER_ROW
+    nrows = -(-count // TRIS_PER_ROW)
+    for g in range(T):
+        for c in range(n_chunks):
+            r0 = int(row0[g]) + c * CHUNK_GATE_ROWS
+            r1 = min(int(row0[g]) + int(nrows[g]), r0 + CHUNK_GATE_ROWS)
+            if r0 >= r1:
+                break
+            chunk[g, c * 8:c * 8 + 3] = row_min[r0:r1].min(axis=0)
+            chunk[g, c * 8 + 3:c * 8 + 6] = row_max[r0:r1].max(axis=0)
+    return packed_f, packed_i, sup, chunk
 
 
 def pack_bvh_tables(nodes: dict, tris: dict):
@@ -424,6 +451,9 @@ def pack_bvh_tables(nodes: dict, tris: dict):
           (tri_first, tri_count, sibling, parent)
       tris_f  [ceil(Nt/6), 128] f32: per tri 20 fields
           (v0, e1, e2, n0, n1, n2, material_id, pad)
+      tri_attrs [ceil(Nt/6) * 6, 16] f32: per tri (n0, n1, n2, material_id)
+          at columns 0..9, the uv stream's gather table (the same values as
+          tris_f's fields 9..18)
     Returns numpy arrays.
     """
     nn = nodes["tri_first"].shape[0]
@@ -466,7 +496,10 @@ def pack_bvh_tables(nodes: dict, tris: dict):
     flat[:nt] = t
     packed_t[:, :TRIS_PER_ROW * TRI_STRIDE] = flat.reshape(
         rows_t, TRIS_PER_ROW * TRI_STRIDE)
-    return packed_f, packed_i, packed_t
+    attrs = np.zeros((rows_t * TRIS_PER_ROW, 16), np.float32)
+    attrs[:nt, 0:9] = t[:, 9:18]
+    attrs[:nt, 9] = t[:, 18]
+    return packed_f, packed_i, packed_t, attrs
 
 
 def pack_wide_tables(wide_nodes, tris8: dict):
@@ -657,8 +690,7 @@ def make_scene_arrays(geom_list, material_list, bvh_nodes, bvh_tris, camera,
                       tre_rows: int = None,
                       triangle_table: bool = False) -> SceneArrays:
     """Build SceneArrays on `device` from the loader's host lists/dicts
-    (pathtracer_tpu/scene/types.py:698, minus the chunk-gate and tri-attr
-    tables).
+    (pathtracer_tpu/scene/types.py:698).
 
     brute_tables: also pack the brute-force intersector's tables; without
     them they have zero rows, so the brute intersector can reject the scene.
@@ -720,6 +752,8 @@ def make_scene_arrays(geom_list, material_list, bvh_nodes, bvh_tris, camera,
         treelet_super = np.zeros((1, 128), np.float32)
         treelet_super[:, 0:3] = np.inf
         treelet_super[:, 3:6] = -np.inf
+        treelet_chunk = _inverted_boxes((8, 128))
+        tri_attrs = np.zeros((1, 16), np.float32)
         mxu_c = mxu_n = np.zeros((0, MXU_NFEAT), np.float32)
     else:
         bmin = np.asarray(bvh_nodes["bounds_min"], dtype=np.float32)
@@ -729,9 +763,11 @@ def make_scene_arrays(geom_list, material_list, bvh_nodes, bvh_tris, camera,
                     for k in ("v0", "v1", "v2", "n0", "n1", "n2")}
         tri_dict["material_id"] = np.asarray(bvh_tris["material_id"],
                                              dtype=np.int32)
-        packed_f, packed_i, packed_t = pack_bvh_tables(bvh_nodes, tri_dict)
-        treelet_f, treelet_i, treelet_super = pack_treelet_tables(
-            bvh_nodes, tri_dict, max_rows=tre_rows)
+        packed_f, packed_i, packed_t, tri_attrs = pack_bvh_tables(
+            bvh_nodes, tri_dict)
+        treelet_f, treelet_i, treelet_super, treelet_chunk = (
+            pack_treelet_tables(
+                bvh_nodes, tri_dict, max_rows=tre_rows))
         if brute_tables:
             mxu_c, mxu_n = pack_tris_mxu(tri_dict)
         else:
@@ -774,6 +810,7 @@ def make_scene_arrays(geom_list, material_list, bvh_nodes, bvh_tris, camera,
         tris_packed=f32(packed_t),
         treelet_f=f32(treelet_f), treelet_i=i32(treelet_i),
         treelet_super=f32(treelet_super),
+        treelet_chunk=f32(treelet_chunk), tri_attrs=f32(tri_attrs),
         tris_mxu_c=f32(mxu_c), tris_mxu_n=f32(mxu_n), tris_brute=f32(brute),
         nodes8_f=f32(nodes8_f), nodes8_i=i32(nodes8_i), tris8=f32(tris8),
         wide_root=i32([wide_root_idx]),

@@ -27,18 +27,20 @@ from ..utils.grad import value_and_grad, with_materials
 
 
 def albedo_loss(scene: SceneArrays, settings: RenderSettings, target: Vec3,
-                iteration: int, seed: int = 0, pixel_offset: int = 0):
+                iteration: int, seed: int = 0, pixel_offset: int = 0,
+                key_salt=None):
     """The fit's loss as a function of the albedo table: one fixed-depth
     iteration, L2 against `target` (lane order) over 3 * pixel_count.
     `target` may be a shard's block of the image, whose first lane is
-    global lane `pixel_offset`: the loss is then that shard's share of the
-    whole image's loss (parallel/sharding.albedo_fit_step sums them)."""
+    global lane `pixel_offset`, with `key_salt` its shard index: the loss is
+    then that shard's share of the whole image's loss
+    (parallel/sharding.albedo_fit_step sums them)."""
     def loss_fn(albedo):
         img = render_iteration(with_materials(scene, color=albedo), settings,
                                zero_accum(settings, scene.device,
                                           n=target.x.shape[0]),
                                iteration, seed=seed, early_exit=False,
-                               pixel_offset=pixel_offset)
+                               pixel_offset=pixel_offset, key_salt=key_salt)
         d = img - target
         return (d.x * d.x + d.y * d.y + d.z * d.z).sum() / (
             3.0 * settings.pixel_count)

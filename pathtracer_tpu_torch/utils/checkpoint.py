@@ -6,9 +6,8 @@ render continues exactly where it stopped: the RNG is a pure function of
 (seed, iteration, pixel), and a resumed render equals an uninterrupted one.
 
 The file is the JAX package's: one .npz with the same keys and the same
-fingerprint JSON. The port has no `fast_rng` switch (it draws from the PCG
-hash streams only) and writes "fast_rng": true, so a checkpoint written by
-either package loads in the other.
+fingerprint JSON (RenderSettings.fast_rng included), so a checkpoint
+written by either package loads in the other.
 """
 from __future__ import annotations
 
@@ -22,16 +21,14 @@ from ..scene.types import RenderSettings
 from ..utils.vec import Vec3
 
 FORMAT_VERSION = 1
-# the JAX package's fingerprint keys but fast_rng, which is always true here
 FINGERPRINT_KEYS = ("width", "height", "trace_depth", "jitter", "dof",
                     "depth_quirk", "geom_types", "any_glossy",
-                    "any_refractive", "rr_start", "bvh_impl")
+                    "any_refractive", "rr_start", "bvh_impl", "fast_rng")
 
 
 def _fingerprint(settings: RenderSettings) -> str:
     """Settings that affect the accumulated estimate (not speed knobs)."""
     d = {k: getattr(settings, k) for k in FINGERPRINT_KEYS}
-    d["fast_rng"] = True
     return json.dumps(d, sort_keys=True, default=list)
 
 

@@ -230,6 +230,21 @@ def report(scene_file: str, device, iters: int = 3, seed: int = 0,
         }
 
 
+def ray_survival_report(scene, settings, iteration: int = 10,
+                        seed: int = 0) -> str:
+    """The live rays before each bounce and after the last, as the
+    reference's PRINT_RAY_COUNT prints them (pathtrace.cu:746-750,877-881;
+    pathtracer_tpu/utils/profiling.py:137): the same text as the JAX
+    package's."""
+    counts = [int(c) for c in wavefront.ray_survival(scene, settings,
+                                                     iteration, seed=seed)]
+    lines = [f"[Iter {iteration}] Initial rays: {counts[0]}"]
+    for d, c in enumerate(counts[1:], start=1):
+        lines.append(f"[Iter {iteration}] After bounce {d}: {c} rays "
+                     "remaining")
+    return "\n".join(lines)
+
+
 def format_report(rep: dict) -> str:
     lines = [f"{rep['scene']} {rep['res'][0]}x{rep['res'][1]} "
              f"d{rep['depth']} bvh {rep['bvh']} (fallback "

@@ -95,25 +95,29 @@ def _aimed_rays(scene, seed, n=N):
     return o, d
 
 
-def _jax_cull(j_scene, o, d, bound, pt0, pid, live):
-    """The JAX package's _cull_kernel on the given planes, launched as
-    mesh_intersect_binned launches it (binned.py:839), in interpret mode."""
+def _jax_cull(j_scene, o, d, bound, pt0, pid, live, k=1):
+    """The JAX package's _cull_kernel with k_wants=k on the given planes,
+    launched as mesh_intersect_binned launches it (binned.py:839), in
+    interpret mode: (ids, t0) planes [n] for k = 1, [k, n] for k > 1."""
     rows = o.shape[1] // 128
     ray_spec = pl.BlockSpec((j_binned.CULL_ROWS, 128), lambda i: (i, 0),
                             memory_space=pltpu.VMEM)
     table_spec = pl.BlockSpec(memory_space=pltpu.VMEM)
     planes = [*o, *d, bound, pt0, pid, live]
-    ids, t0 = pl.pallas_call(
-        functools.partial(j_binned._cull_kernel, k_wants=1),
+    out = pl.pallas_call(
+        functools.partial(j_binned._cull_kernel, k_wants=k),
         grid=(rows // j_binned.CULL_ROWS,),
         in_specs=[table_spec, table_spec] + [ray_spec] * 10,
-        out_specs=[ray_spec] * 2,
+        out_specs=[ray_spec] * (2 * k),
         out_shape=[jax.ShapeDtypeStruct((rows, 128), jnp.int32),
-                   jax.ShapeDtypeStruct((rows, 128), jnp.float32)],
+                   jax.ShapeDtypeStruct((rows, 128), jnp.float32)] * k,
         interpret=True,
     )(j_scene.treelet_f, j_scene.treelet_super,
       *(jnp.asarray(p.reshape(rows, 128)) for p in planes))
-    return np.asarray(ids).reshape(-1), np.asarray(t0).reshape(-1)
+    ids = np.stack([np.asarray(out[2 * s]).reshape(-1) for s in range(k)])
+    t0s = np.stack([np.asarray(out[2 * s + 1]).reshape(-1)
+                    for s in range(k)])
+    return (ids[0], t0s[0]) if k == 1 else (ids, t0s)
 
 
 def test_cull_plain_matches_jax_cull_kernel(teapot):

@@ -864,3 +864,167 @@ def test_scan_kernel_rejects_bad_inputs():
         scan.scan_kernel(x.cpu())                      # off the card
     with pytest.raises(ValueError):
         scan.exclusive_scan(x.reshape(10, 10))
+
+
+def _stream_pool(scene, n, seed, device):
+    """A first-pass stream input on `device`: aimed rays, each lane's
+    nearest wanted treelet, the pool sorted by it per column as the bin
+    sort leaves it (n a multiple of 128)."""
+    o, d, bound = aimed_planes(scene, n, seed, device)
+    tid, _ = binned.cull(scene.treelet_f, scene.treelet_super, *o, *d, bound,
+                         torch.full((n,), -FLT_MAX, device=device),
+                         torch.full((n,), -1, dtype=torch.int32,
+                                    device=device),
+                         torch.ones(n, dtype=torch.int32, device=device))
+    tid, *planes = binned._seg_sort(tid, *o, *d, bound)
+    return (scene.treelet_i, scene.tris_packed, scene.tre_rows, *planes,
+            tid)
+
+
+def test_cpu_tensors_take_the_plain_versions_of_the_forms():
+    """The K-want cull and every stream form take their plain versions on
+    CPU tensors: no launch, no build."""
+    scene, _ = load_scene(scene_path("teapot"), "cpu")
+    before = dict(kernels.LAUNCHES)
+    o, d, bound, act = _planes(256, 0, "cpu")
+    c_args = (scene.treelet_f, scene.treelet_super, *o, *d, bound,
+              torch.full((256,), -FLT_MAX),
+              torch.full((256,), -1, dtype=torch.int32), act)
+    for a, b in zip(binned.cull(*c_args, k=3),
+                    binned.cull_plain(*c_args, k=3)):
+        assert torch.equal(a, b)
+    s_args = _stream_pool(scene, 256, 0, "cpu")
+    kw = dict(uv=True, min_support=8, treelet_chunk=scene.treelet_chunk)
+    for a, b in zip(binned.stream(*s_args, **kw),
+                    binned.stream_plain(*s_args, **kw)):
+        assert torch.equal(a, b)
+    assert kernels.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["teapot", "animal"])
+@pytest.mark.parametrize("k", [2, 3, 4, 8])
+def test_cull_k_wants_match_plain_version_on_the_card(name, k):
+    """The K-want cull against its plain version, [k, n] ids and t0s bit
+    for bit, over two enumeration steps (resuming after slot k-1), one
+    launch a call logged as cull_k<k>; slot 0 is the one-want cull's."""
+    _need_cuda()
+    scene, _ = load_scene(scene_path(name), "cuda")
+    n = 65536
+    o, d, bound = aimed_planes(scene, n, 21, "cuda")
+    live = (torch.arange(n, device="cuda") % 7 > 0).to(torch.int32)
+    pt0 = torch.full((n,), -FLT_MAX, device="cuda")
+    pid = torch.full((n,), -1, dtype=torch.int32, device="cuda")
+    for step in range(2):
+        args = (scene.treelet_f, scene.treelet_super, *o, *d, bound, pt0,
+                pid, live)
+        kernels.reset_counts()
+        got = binned.cull(*args, k=k)
+        assert kernels.LAUNCHES["cull"] == 1
+        assert kernels.FORMS == {f"cull_k{k}": 1}
+        assert got[0].shape == (k, n)
+        _same_bits(got, binned.cull_plain(*args, k=k))
+        _same_bits((got[0][0], got[1][0]), binned.cull(*args))
+        if step == 0:
+            assert int((got[0][k - 1] < binned.TREELET_NONE).sum()) > 1000
+        pt0, pid = got[1][k - 1].contiguous(), got[0][k - 1].contiguous()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["teapot", "animal"])
+@pytest.mark.parametrize("form", ["uv", "defer", "gate", "uv_gate",
+                                  "defer_gate"])
+def test_stream_forms_match_plain_versions_on_the_card(name, form):
+    """Each stream form against its plain version on a first-pass pool,
+    every output bit for bit (inc too), one launch logged with its form;
+    the gated outputs equal the ungated ones, and the deferring form's
+    inc covers a partial last block of lanes."""
+    _need_cuda()
+    scene, _ = load_scene(scene_path(name), "cuda")
+    n = 65536 + 384
+    args = _stream_pool(scene, n, 23, "cuda")
+    kw = {}
+    if "uv" in form:
+        kw["uv"] = True
+    if "defer" in form:
+        kw["min_support"] = 64
+    if "gate" in form:
+        kw["treelet_chunk"] = scene.treelet_chunk
+    kernels.reset_counts()
+    got = binned.stream(*args, **kw)
+    assert kernels.LAUNCHES["stream"] == 1
+    assert kernels.FORMS == {"stream_" + form: 1}
+    _same_bits(got, binned.stream_plain(*args, **kw))
+    if "gate" in form:
+        kw.pop("treelet_chunk")
+        _same_bits(got, binned.stream(*args, **kw))
+    if "defer" in form:
+        inc = got[5]
+        assert 0 < int(inc.sum()) < int((args[-1] < binned.TREELET_NONE)
+                                        .sum())
+    assert int((got[0] > 0).sum()) > 1000
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_stream_kernel_on_the_expanded_pool():
+    """The default stream on a four-fold pool (the expansion pipeline's
+    2.6 million lanes at 800x800): its persistent grid covers every lane,
+    bit for bit against the plain version on a sample of them."""
+    _need_cuda()
+    scene, _ = load_scene(scene_path("teapot"), "cuda")
+    args = _stream_pool(scene, 4 * 655360, 29, "cuda")
+    got = binned.stream(*args)
+    idx = torch.arange(0, args[-1].shape[0], 97, device="cuda")
+    sub = args[:3] + tuple(a[idx].contiguous() for a in args[3:])
+    ref = binned.stream_plain(*sub)
+    _same_bits(tuple(g[idx] for g in got), ref)
+    assert int((got[0] > 0).sum()) > 100000
+
+
+BINNED_FORMS = [
+    (dict(expand=2), {}), (dict(expand=4), {}), (dict(slots=3), {}),
+    ({}, dict(MIN_SUPPORT=64)), ({}, dict(CHUNK_GATE=True)),
+    ({}, dict(STREAM_UV=True)), ({}, dict(BIN_CONTIGUOUS=True)),
+    ({}, dict(CAND_KEY="octcell")),
+    (dict(slots=3), dict(MIN_SUPPORT=16, CHUNK_GATE=True)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,flags", BINNED_FORMS)
+def test_binned_forms_on_the_card_match_the_default(kw, flags):
+    """Each pipeline shape and kernel form on the card gives the default
+    pipeline's hits on active lanes bit for bit (tests/
+    test_torch_binned_forms.py holds them to it on the CPU)."""
+    _need_cuda()
+    scene, _ = load_scene(scene_path("teapot"), "cuda")
+    o, d, bound, act = _planes(16384, 5, "cuda")
+    a = act > 0
+    ref = binned.mesh_intersect_binned(scene, scene.mesh_roots, Vec3(*o),
+                                       Vec3(*d), active=a, t_bound=bound)
+    with mock.patch.multiple(binned, **flags, PASSES=None):
+        got = binned.mesh_intersect_binned(scene, scene.mesh_roots, Vec3(*o),
+                                           Vec3(*d), active=a, t_bound=bound,
+                                           **kw)
+    assert int((ref[0][a] > 0).sum()) > 500
+    _same_bits((got[0][a], *(c[a] for c in got[1]), got[2][a]),
+               (ref[0][a], *(c[a] for c in ref[1]), ref[2][a]))
+
+
+@pytest.mark.cuda
+def test_threefry_draws_on_the_card_match_the_cpu():
+    """The threefry streams on the card: uniforms equal the CPU's bit for
+    bit, normals within 4 ulp (the libms' log1p may round differently)."""
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import rng
+    key = rng.fold_in(rng.key(5), 3)
+    for n, m in ((640000, 5), (1001, 2)):
+        u = rng.uniforms(key, n, m, "cuda")
+        assert torch.equal(u.cpu().view(torch.int32),
+                           rng.uniforms(key, n, m, "cpu").view(torch.int32))
+        z = rng.normals(key, n, m, "cuda").cpu()
+        ref = rng.normals(key, n, m, "cpu")
+        ulp = (z.view(torch.int32).long() - ref.view(torch.int32).long())
+        assert int(ulp.abs().max()) <= 4

@@ -127,3 +127,43 @@ def test_engine_modes_report_their_stages(mode):
         assert "mode.sorts" not in stages
     if mode == "tiled":                   # 4 tiles of 64 a bounce
         assert stages["shade"]["calls"] % 4 == 0
+
+
+def test_binned_stages_show_as_named_ranges():
+    """The binned pipeline's sort, cull, stream and fallback stages run
+    under the JAX package's scope names (ops/binned.py:703,833,861,1168),
+    so a torch.profiler trace of one call holds all four."""
+    from pathtracer_tpu_torch import load_scene
+    from pathtracer_tpu_torch.ops.binned import mesh_intersect_binned
+    from pathtracer_tpu_torch.utils.vec import Vec3
+    scene, _ = load_scene(scene_path("teapot"), "cpu")
+    r = torch.Generator().manual_seed(0)
+    o = Vec3(*(torch.rand(512, generator=r) * 10 - 5 for _ in range(3)))
+    d = Vec3(*(torch.randn(512, generator=r) for _ in range(3)))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        mesh_intersect_binned(scene, scene.mesh_roots, o, d)
+    names = {e.name for e in prof.events()}
+    for scope in ("pt_mi_sort", "pt_mi_cull", "pt_mi_stream", "pt_mi_fb"):
+        assert scope in names, scope
+
+
+@pytest.mark.parametrize("fast_rng", [True, False])
+def test_ray_survival_report_equals_jax(fast_rng):
+    import dataclasses
+
+    from pathtracer_tpu import load_scene as jax_load_scene
+    from pathtracer_tpu.utils.profiling import (
+        ray_survival_report as jax_report)
+    from pathtracer_tpu_torch import load_scene
+    overrides = {"RES": [32, 32]}
+    scene, settings = load_scene(scene_path("cornell"), "cpu",
+                                 overrides=overrides)
+    j_scene, j_settings = jax_load_scene(scene_path("cornell"),
+                                         overrides=overrides)
+    settings = dataclasses.replace(settings, fast_rng=fast_rng)
+    j_settings = dataclasses.replace(j_settings, fast_rng=fast_rng)
+    text = profiling.ray_survival_report(scene, settings, seed=3)
+    assert text == jax_report(j_scene, j_settings, seed=3)
+    assert text.startswith("[Iter 10] Initial rays: 1024")
+    assert text.count("\n") == settings.trace_depth

@@ -23,7 +23,8 @@ torch.set_num_threads(2)
 SCENES = ["cornell", "sphere", "glass_slab", "open_test_scene", "test_scene",
           "teapot", "cow", "animal"]   # every scene in scenes/
 TABLES = ["bvh_packed_f", "bvh_packed_i", "tris_packed", "treelet_f",
-          "treelet_i", "treelet_super", "tris_mxu_c", "tris_mxu_n",
+          "treelet_i", "treelet_super", "treelet_chunk", "tri_attrs",
+          "tris_mxu_c", "tris_mxu_n",
           "nodes8_f", "nodes8_i", "tris8", "wide_root"]
 GROUPS = ["geoms", "materials", "bvh", "camera"]
 
