@@ -114,7 +114,31 @@ Phases, each fatal on failure:
      NORMAL_ULP), Cornell 800x800 d8 with fast_rng=False beside the fast
      path (ms/frame, device kernels of one draw), and the image means of
      both at THREEFRY_SPP spp within THREEFRY_MEAN_TOL (tests/test_engine
-     .py:210).
+     .py:210);
+ 23. full-scale golden parity: tools/golden_parity.compute_parity of
+     Cornell 800x800 d8 at golden_parity.ENVELOPE_SPP spp against the
+     reference's 5000-spp render, within tests/test_parity_full.py's
+     bounds (golden_parity.check_envelope; that test's 300 spp is too few
+     for its correlation bound, see ENVELOPE_SPP), with s and ms a frame;
+     then animal 1200x1200 d12 through binned, ANIMAL_SPP spp with the
+     counters reset just before and read just after: cull, stream and
+     packet must launch, the image must be finite; ms/frame, launches a
+     frame and B1-B3's device ms a frame (utils/profiling.device_profile
+     over one frame), and the scene's union rows and BVH nodes beside the
+     kernels' shared-memory limits; then one more animal frame with cull,
+     stream and packet recorded: the lanes of every call by bounce, and
+     each call of ANIMAL_CHECK_BOUNCES against its plain version bit for
+     bit (the 1,440,000-lane pool at this path's shapes);
+ 24. measure_stages (utils/profiling.py, tools/perfstats.py's table) on
+     teapot 800x800 d4 through binned and on Cornell 800x800 d8: every
+     time finite and positive;
+ 25. the terminal viewer: `python -m pathtracer_tpu_torch.tools.viewer
+     scenes/teapot.json --res 256 --typed --spp-per-step 2 --max-steps 3`
+     in a temporary directory, fed "a" and "s": exit code 0, a timestamped
+     save, and 4 spp after the orbit restarted accumulation; its ms/frame;
+ 26. the RNG stream API (ops/rng.py Stream), fast and threefry: uniforms
+     of (640000, 4) on the card bit-equal to the CPU's, normals within
+     NORMAL_ULP or STREAM_NORMAL_ABS, whichever is larger.
 The second-to-last lines are one JSON object with every kernel's numbers and
 the card's name and power limit; the last line is the result object.
 Exits non-zero, printing no result, where torch sees no CUDA device.
@@ -190,6 +214,16 @@ FORM_OF = {"cull_k2": "expand2", "cull_k4": "expand4", "cull_k3": "slots3",
 NORMAL_ULP = 4        # tests/test_torch_threefry.py / test_torch_kernels.py
 THREEFRY_SPP = 16
 THREEFRY_MEAN_TOL = 0.03
+# phase 23: one animal frame's cull, stream and packet calls of these
+# bounces (0: camera rays, 1: the first scattered rays) are held against
+# their plain versions bit for bit
+ANIMAL_CHECK_BOUNCES = (0, 1)
+ANIMAL_RES, ANIMAL_DEPTH, ANIMAL_SPP = 1200, 12, 4
+CULL_SMEM_ROWS = 80  # csrc/cull.cu SMEM_MAX_ROWS
+STAGE_ITERS = 10     # phase 24: calls of each stage and frames
+VIEWER_TIMEOUT = 300
+STREAM_LANES = 640000
+STREAM_NORMAL_ABS = 1e-6   # tests/test_torch_rng_stream.py
 
 
 def leaves(tree) -> list:
@@ -909,12 +943,24 @@ def forms_phase(dev, scene, settings, state, live, c_scene, c_set,
         # the default stream on the expanded pools (2x and 4x the lanes)
         for label in ("expand2", "expand4"):
             (args, kw), = [c for c in captured[(label, "stream")]]
-            compare(f"stream ({label} pool)", binned.stream(*args),
+            got = binned.stream(*args)
+            compare(f"stream ({label} pool)", got,
                     binned.stream_plain(*args), [0, 1, 2, 3], [4],
                     [0, 1, 2, 3])
+            ms = cuda_ms(lambda: binned.stream(*args), reps=20)
             dev_ms, _ = device_ms(lambda: binned.stream(*args), reps=10)
+            tid = args[-1]
+            n_need = int(((tid >= 0) & (tid < args[0].numel() // 4)).sum())
+            ops = OPS_TRI * stream_tri_tests(args)
+            n_bytes = need_bytes(args[:2], args[3:10], n_need, [tid], got)
+            bound_ms, bound_by = bound(n_bytes, ops)
+            report["stream"][f"{label}_pool"] = {
+                "lanes": args[3].shape[0], "ms": ms, "device_ms": dev_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by}
             log(f"kernel stream on the {label} pool: {args[3].shape[0]} "
-                f"lanes, bit-equal, device {dev_ms:.4f} ms")
+                f"lanes ({n_need} needing work), bit-equal, kernel "
+                f"{ms:.4f} ms (device {dev_ms:.4f}), bound {bound_ms:.4f} ms "
+                f"by {bound_by} ({n_bytes} bytes, {ops} FP32 ops)")
 
     # each setting's render: its forms launch, the default image's bits
     ref = render(scene, settings, iterations=1, seed=0)
@@ -982,6 +1028,234 @@ def forms_phase(dev, scene, settings, state, live, c_scene, c_set,
             means["threefry"] - means["fast"]) >= THREEFRY_MEAN_TOL:
         raise AssertionError("threefry image mean off the fast path's")
     log(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
+
+
+def animal_kernel_calls(a_scene, a_set) -> None:
+    """Phase 23's kernel check at full width: one animal frame through
+    render with cull, stream and packet recorded (the bounce counted at
+    each intersect_scene call of the bounce loop); logs every call's lanes
+    by bounce and holds each call of ANIMAL_CHECK_BOUNCES against its plain
+    version bit for bit. Raises on any failure."""
+    import torch
+    from pathtracer_tpu_torch import render
+    from pathtracer_tpu_torch.engine import wavefront
+    from pathtracer_tpu_torch.ops import binned, bvh_packet
+    from pathtracer_tpu_torch.utils.kernel_bench import cuda_ms
+    bounce = [-1]
+    lanes = {}       # bounce -> {kernel: [lanes of each call]}
+    recorded = []    # (bounce, kernel, args, kwargs)
+
+    def counting(fn):
+        def wrapper(*args, **kwargs):
+            bounce[0] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    def recording(name, fn):
+        def wrapper(*args, **kwargs):
+            # the last argument is a per-lane plane: the cull's active
+            # mask, the stream's treelet ids, the packet walk's t bound
+            lanes.setdefault(bounce[0], {}).setdefault(name, []).append(
+                args[-1].shape[-1])
+            if bounce[0] in ANIMAL_CHECK_BOUNCES:
+                recorded.append((bounce[0], name, args, kwargs))
+            return fn(*args, **kwargs)
+        return wrapper
+
+    # name: (kernel, plain, (float outputs, int outputs, exact floats))
+    specs = {
+        "cull": (binned.cull, binned.cull_plain, ([1], [0], [1])),
+        "stream": (binned.stream, binned.stream_plain,
+                   ([0, 1, 2, 3], [4], [0])),
+        "packet": (bvh_packet.packet_walk, bvh_packet.packet_walk_plain,
+                   ([0, 1, 2, 3], [4], [0])),
+    }
+    with torch.inference_mode():
+        with mock.patch.object(wavefront, "intersect_scene",
+                               counting(wavefront.intersect_scene)), \
+                mock.patch.object(binned, "cull",
+                                  recording("cull", binned.cull)), \
+                mock.patch.object(binned, "stream",
+                                  recording("stream", binned.stream)), \
+                mock.patch.object(bvh_packet, "packet_walk",
+                                  recording("packet",
+                                            bvh_packet.packet_walk)):
+            render(a_scene, a_set, iterations=1, seed=0)
+        torch.cuda.synchronize()
+        for b in sorted(lanes):
+            log(f"animal frame, bounce {b}: lanes a call "
+                + ", ".join(f"{k} {v}" for k, v in lanes[b].items()))
+        for b in ANIMAL_CHECK_BOUNCES:
+            names = {name for bb, name, _, _ in recorded if bb == b}
+            if not {"cull", "stream"} <= names:
+                raise AssertionError(f"animal bounce {b}: cull or stream "
+                                     f"not called ({sorted(names)})")
+        for b, name, args, kw in recorded:
+            kern, plain, (f_idx, i_idx, ex_idx) = specs[name]
+            if name == "cull":
+                need = int((args[11] > 0).sum())
+            elif name == "stream":
+                tid = args[-1]
+                need = int(((tid >= 0)
+                            & (tid < args[0].numel() // 4)).sum())
+            else:
+                need = int((args[10] > 0).sum())
+            got = kern(*args, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = plain(*args, **kw)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+            compare(f"animal bounce {b} {name}", got, ref, f_idx, i_idx,
+                    ex_idx)
+            ms = cuda_ms(lambda: kern(*args, **kw), reps=5)
+            log(f"animal bounce {b} {name}: {args[-1].shape[-1]} lanes "
+                f"({need} needing work), bit-equal to the plain version; "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms")
+        if not any(name == "packet" for _, name, _, _ in recorded):
+            log(f"animal bounces {ANIMAL_CHECK_BOUNCES}: no packet "
+                "fallback call to hold")
+
+
+def fullscale_phases(dev, scene, settings, c_scene, c_set) -> None:
+    """Phases 23-26 (the module docstring). Raises on any failure."""
+    import os
+    import re
+    import tempfile
+
+    import torch
+    from pathtracer_tpu_torch import load_scene, render
+    from pathtracer_tpu_torch.ops import bvh_packet, kernels, rng
+    from pathtracer_tpu_torch.tools.golden_parity import (ENVELOPE_SPP,
+                                                          check_envelope,
+                                                          compute_parity)
+    from pathtracer_tpu_torch.utils.profiling import (device_profile,
+                                                      measure_stages)
+
+    def r5(a):
+        return [round(float(x), 5) for x in a]
+
+    # -- 23. full-scale parity ------------------------------------------------
+    t_phase = time.perf_counter()
+    m = compute_parity(spp=ENVELOPE_SPP, chunk=100, device=dev)
+    log(f"parity cornell 800x800 d8, {ENVELOPE_SPP} spp: mad "
+        f"{m['mad']:.5f}, "
+        f"b8 mean {m['b8_mean']:.5f} max {m['b8_max']:.5f}, b16 mean "
+        f"{m['b16_mean']:.5f} max {m['b16_max']:.5f}, corr {m['corr']:.5f}, "
+        f"channel means {r5(m['means_ours'])} against "
+        f"{r5(m['means_gold'])} (delta {r5(m['mean_delta'])}); "
+        f"{m['seconds']:.2f} s, "
+        f"{m['ms_frame']:.2f} ms/frame after the first chunk")
+    bad = check_envelope(m)
+    if bad:
+        raise AssertionError(f"parity off the envelope: {bad}")
+    t0 = time.perf_counter()
+    a_scene, a_set = load_scene(ANIMAL, dev, overrides={
+        "RES": [ANIMAL_RES, ANIMAL_RES], "DEPTH": ANIMAL_DEPTH})
+    load_s = time.perf_counter() - t0
+    rows = a_scene.treelet_super.shape[0]
+    nodes = min(a_scene.bvh_packed_f.numel() // 8,
+                a_scene.bvh_packed_i.numel() // 4)
+    def path(n, limit):
+        return "cached-read path" if n > limit else "shared-memory path"
+
+    log(f"animal {a_set.width}x{a_set.height} d{a_set.trace_depth} "
+        f"{a_set.bvh_impl}: load {load_s:.2f} s; {rows} union rows (cull.cu"
+        f" stages up to {CULL_SMEM_ROWS}: {path(rows, CULL_SMEM_ROWS)}), "
+        f"{nodes} BVH nodes (packet.cu stages up to "
+        f"{bvh_packet.SMEM_NODES}: {path(nodes, bvh_packet.SMEM_NODES)})")
+    render(a_scene, a_set, iterations=1, seed=0)           # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    img = render(a_scene, a_set, iterations=ANIMAL_SPP, seed=0)
+    torch.cuda.synchronize()
+    a_ms = 1000.0 * (time.perf_counter() - t0) / ANIMAL_SPP
+    launches = {k: v / ANIMAL_SPP for k, v in kernels.LAUNCHES.items() if v}
+    for k in ("cull", "stream", "packet"):
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"animal never launched the {k} kernel")
+    if not np.isfinite(img).all() or not img.max() > 0:
+        raise AssertionError("animal image is not finite or all zero")
+    with torch.inference_mode():
+        prof = device_profile(a_scene, a_set, iters=1)
+    by_kind = prof["by_kind"]
+    kern = {k: by_kind.get(f"{k} kernel", {"ms": 0.0, "launches": 0})
+            for k in ("cull", "stream", "packet")}
+    log(f"animal {ANIMAL_RES}x{ANIMAL_RES} d{ANIMAL_DEPTH} binned: "
+        f"{a_ms:.2f} ms/frame over {ANIMAL_SPP} iterations, launches a "
+        f"frame {launches}; one profiled frame: wall {prof['wall_ms']:.2f} "
+        f"ms, device {prof['device_ms']:.2f} ms in "
+        f"{prof['launches']:.0f} device kernels, busy "
+        f"{100.0 * prof['busy_share']:.1f}%; "
+        + ", ".join(f"{k} {v['ms']:.4f} device ms ({v['launches']:.0f} "
+                    "device kernels)" for k, v in kern.items())
+        + f"; image mean {r5(img.mean(axis=(0, 1)))}")
+    animal_kernel_calls(a_scene, a_set)
+    log(f"phase 23: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 24. measure_stages ----------------------------------------------------
+    t_phase = time.perf_counter()
+    for name, sc, st in (("teapot", scene, settings),
+                         ("cornell", c_scene, c_set)):
+        stats = measure_stages(sc, st, iters=STAGE_ITERS)
+        log(f"measure_stages {name} {st.width}x{st.height} "
+            f"d{st.trace_depth} {st.bvh_impl} ({STAGE_ITERS} calls "
+            f"each):\n{stats.table()}")
+        times = (stats.raygen_ms, stats.intersect_ms, stats.shade_ms,
+                 stats.gather_ms, stats.frame_ms)
+        if not all(np.isfinite(t) and t > 0 for t in times):
+            raise AssertionError(f"measure_stages {name}: {times}")
+    log(f"phase 24: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 25. the terminal viewer ----------------------------------------------
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    with tempfile.TemporaryDirectory() as tmp:
+        p = subprocess.run(
+            [sys.executable, "-m", "pathtracer_tpu_torch.tools.viewer",
+             os.path.join(root, TEAPOT), "--res", "256", "--typed",
+             "--spp-per-step", "2", "--max-steps", "3"],
+            cwd=tmp, env=env, input="a\ns\n", capture_output=True,
+            text=True, timeout=VIEWER_TIMEOUT)
+        saved = re.findall(r"saved (\S+samp\.png)", p.stdout)
+        if p.returncode != 0 or not saved or not os.path.exists(
+                os.path.join(tmp, saved[0])):
+            raise AssertionError(f"viewer rc {p.returncode}, no save: "
+                                 f"{p.stdout[-1500:]} {p.stderr[-1500:]}")
+    # the two typed steps print 2 then 4 spp (4 then 6 without the restart)
+    if re.findall(r"(\d+) spp", p.stdout) != ["2", "4"]:
+        raise AssertionError("viewer: the orbit did not restart "
+                             f"accumulation: {p.stdout[-1500:]}")
+    log("viewer teapot 256x256 typed: rc 0, saved, "
+        + "; ".join(re.findall(r"\d+ spp +\([\d.]+ ms/frame\)", p.stdout))
+        + f"; phase 25: {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 26. the RNG stream API, card vs CPU ----------------------------------
+    for fast in (True, False):
+        card = rng.Stream.for_iteration(fast, 0, 7, salt=-1, device=dev)
+        cpu = rng.Stream.for_iteration(fast, 0, 7, salt=-1, device="cpu")
+        max_ulp, n_differ = 0, 0.0
+        for c, h in ((card, cpu), (card.fold(3), cpu.fold(3))):
+            if not same_bits(c.uniforms(STREAM_LANES, 4).cpu().numpy(),
+                             h.uniforms(STREAM_LANES, 4).numpy()):
+                raise AssertionError(f"Stream(fast={fast}) uniforms differ "
+                                     "card vs CPU")
+            z_c = c.normals(STREAM_LANES, 3).cpu().numpy()
+            z_h = h.normals(STREAM_LANES, 3).numpy()
+            ulp = np.abs(z_c.view(np.int32).astype(np.int64)
+                         - z_h.view(np.int32).astype(np.int64))
+            bad = (ulp > NORMAL_ULP) & (np.abs(z_c - z_h) > STREAM_NORMAL_ABS)
+            if bad.any():
+                raise AssertionError(f"Stream(fast={fast}) normals: "
+                                     f"{int(bad.sum())} off")
+            max_ulp = max(max_ulp, int(ulp.max()))
+            n_differ = max(n_differ, float((ulp > 0).mean()))
+        log(f"Stream(fast={fast}) {STREAM_LANES}x4 and one fold on the card:"
+            f" uniforms bit-equal to the CPU's, normals (x3) max {max_ulp} "
+            f"ulp ({n_differ:.4%} differ at most)")
 
 
 def main() -> int:
@@ -1564,7 +1838,10 @@ def main() -> int:
     # -- 22. the binned pipeline's other forms, the threefry path -------------
     forms_phase(dev, scene, settings, state, live, c_scene, c_set, report)
 
-    # -- 23. results -----------------------------------------------------------
+    # -- 23.-26. full-scale parity, perfstats, the viewer, the stream API -----
+    fullscale_phases(dev, scene, settings, c_scene, c_set)
+
+    # -- 27. results -----------------------------------------------------------
     log(json.dumps({"kernels": list(report.values())}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

@@ -25,22 +25,27 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
 
 
+def png_bytes(img8: np.ndarray) -> bytes:
+    """The bytes of an 8-bit RGB PNG of the uint8 [H, W, 3] image `img8`,
+    as it stands (no clamp, no mirror)."""
+    h, w, _ = img8.shape
+    # filter type 0 (None) before every scanline
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          np.ascontiguousarray(img8).reshape(h, w * 3)],
+                         axis=1).tobytes()
+    return (b"\x89PNG\r\n\x1a\n"
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(raw, 6))
+            + _chunk(b"IEND", b""))
+
+
 def save_png(img, path: str, mirror_x: bool = True) -> str:
     """Save an averaged [H, W, 3] image as an 8-bit RGB PNG."""
     arr = to_uint8(img)
     if mirror_x:
         arr = arr[:, ::-1, :]
-    h, w, _ = arr.shape
-    # filter type 0 (None) before every scanline
-    raw = np.concatenate([np.zeros((h, 1), np.uint8),
-                          np.ascontiguousarray(arr).reshape(h, w * 3)],
-                         axis=1).tobytes()
-    png = (b"\x89PNG\r\n\x1a\n"
-           + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-           + _chunk(b"IDAT", zlib.compress(raw, 6))
-           + _chunk(b"IEND", b""))
     with open(path, "wb") as f:
-        f.write(png)
+        f.write(png_bytes(arr))
     return path
 
 

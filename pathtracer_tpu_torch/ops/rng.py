@@ -21,6 +21,11 @@ any pixel id below 2**31 does too. The bits are therefore identical to the
 JAX package's uint32 arithmetic, and so are the uniforms built from them.
 Threefry as eager int64 ops is some 170 small kernels a draw on a device
 (the JAX package has no kernel for it either).
+
+`Stream` is the JAX package's per-iteration stream API (fast_state /
+fast_fold / fast_uniforms / fast_normals on the hash, iteration_key /
+bounce_key on threefry), which no render path reaches; it draws [n, m]
+blocks by lane row on the device it was made for.
 """
 from __future__ import annotations
 
@@ -60,6 +65,42 @@ def _mul32(x, c: int):
     lo = x * (c & 0xFFFF)
     hi = (x * (c >> 16)) & 0xFFFF
     return (lo + (hi << 16)) & M32
+
+
+def fast_state(seed: int, iteration, device) -> torch.Tensor:
+    """The uint32 stream state of one iteration: a 0-d int64 tensor on
+    `device` (pathtracer_tpu/ops/rng.py:47)."""
+    s = (_u32(seed) * GOLDEN + _u32(iteration)) & M32
+    return _pcg(torch.as_tensor(s, dtype=torch.int64, device=device))
+
+
+def fast_fold(state: torch.Tensor, salt) -> torch.Tensor:
+    """A sub-stream of `state` (per bounce or shard); a negative salt wraps
+    to uint32, as the JAX package's astype does."""
+    return _pcg(state ^ _mul32(_u32(salt), GOLDEN))
+
+
+def fast_uniforms(state: torch.Tensor, n: int, m: int) -> torch.Tensor:
+    """[n, m] float32 uniforms in [0, 1) from the hash stream `state`, on
+    its device."""
+    dev = state.device
+    lane = torch.arange(n, dtype=torch.int64, device=dev)[:, None]
+    draw = torch.arange(m, dtype=torch.int64, device=dev)[None, :]
+    return _to_unit(_pcg(lane ^ _pcg((_mul32(draw, GOLDEN) + state) & M32)))
+
+
+def _box_muller(u: torch.Tensor, m: int) -> torch.Tensor:
+    """[n, 2k] uniforms -> [n, m] standard normals."""
+    u1 = torch.clamp(u[:, 0::2], min=1e-12)
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    theta = (2.0 * math.pi) * u[:, 1::2]
+    return torch.cat([r * torch.cos(theta), r * torch.sin(theta)],
+                     dim=1)[:, :m]
+
+
+def fast_normals(state: torch.Tensor, n: int, m: int) -> torch.Tensor:
+    """[n, m] standard normals by Box-Muller on hash uniforms."""
+    return _box_muller(fast_uniforms(state, n, 2 * ((m + 1) // 2)), m)
 
 
 def decision_state(seed: int, sample, depth,
@@ -132,6 +173,18 @@ def fold_in(k: tuple, data) -> tuple:
     wraps, as the JAX package's _u32_salt makes raygen's depths -1 and -2):
     the cipher of the counter (0, data)."""
     return threefry2x32(k[0], k[1], 0, _u32(data))
+
+
+def iteration_key(seed, iteration) -> tuple:
+    """The key of one progressive-render iteration: `seed` is a host int or
+    a key tuple (pathtracer_tpu/ops/rng.py:131)."""
+    base = key(seed) if isinstance(seed, int) else seed
+    return fold_in(base, iteration)
+
+
+def bounce_key(iter_key: tuple, depth) -> tuple:
+    """The key of one bounce within an iteration."""
+    return fold_in(iter_key, depth)
 
 
 def random_bits(k: tuple, n: int, m: int, device) -> torch.Tensor:
@@ -242,3 +295,44 @@ class IterationRng:
             return fast_normals_perlane(self._state(depth, lane), m)
         return normals(self._key(depth, None), lane.shape[0], m,
                        lane.device).unbind(1)
+
+
+class Stream:
+    """One iteration's RNG stream (pathtracer_tpu/ops/rng.py:217): the hash
+    state (fast) or a threefry key (fast=False), and the device its draws
+    land on."""
+
+    __slots__ = ("fast", "state", "device")
+
+    def __init__(self, fast: bool, state, device):
+        self.fast = bool(fast)
+        self.state = state
+        self.device = torch.device(device)
+
+    @classmethod
+    def for_iteration(cls, fast: bool, seed: int, iteration, salt=None,
+                      device="cuda") -> "Stream":
+        if fast:
+            st = fast_state(seed, iteration, device)
+            if salt is not None:
+                st = fast_fold(st, salt)
+        else:
+            st = iteration_key(seed, iteration)
+            if salt is not None:
+                st = fold_in(st, salt)
+        return cls(fast, st, device)
+
+    def fold(self, salt) -> "Stream":
+        if self.fast:
+            return Stream(True, fast_fold(self.state, salt), self.device)
+        return Stream(False, fold_in(self.state, salt), self.device)
+
+    def uniforms(self, n: int, m: int) -> torch.Tensor:
+        if self.fast:
+            return fast_uniforms(self.state, n, m)
+        return uniforms(self.state, n, m, self.device)
+
+    def normals(self, n: int, m: int) -> torch.Tensor:
+        if self.fast:
+            return fast_normals(self.state, n, m)
+        return normals(self.state, n, m, self.device)

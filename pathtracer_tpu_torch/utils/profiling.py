@@ -24,6 +24,11 @@ one warm-up iteration:
 
 It runs on the CUDA device unless `--device cpu` asks for the CPU, where
 there is no device to trace: the device fields are then None.
+
+`measure_stages` is the other contract, the JAX package's (printed by
+`python -m pathtracer_tpu_torch.tools.perfstats`): raygen, intersect, shade
+and gather each called on its own on one pool, synchronized, beside the
+eager frame.
 """
 from __future__ import annotations
 
@@ -37,8 +42,9 @@ from unittest import mock
 import torch
 
 from ..engine import persistent, wavefront
-from ..ops import binned, brute, bvh_packet, intersect, wide
+from ..ops import binned, brute, bsdf, bvh_packet, intersect, rng, wide
 from .device import resolve_device
+from .vec import Vec3
 
 MODES = ("masked", "sorted", "tiled", "persistent")
 
@@ -228,6 +234,111 @@ def report(scene_file: str, device, iters: int = 3, seed: int = 0,
             "device_profile": device_profile(*args),
             "stage_times": stage_times(*args),
         }
+
+
+@dataclasses.dataclass
+class StageStats:
+    """Per-stage mean milliseconds (the reference's printPerformanceStats,
+    pathtracer_tpu/utils/profiling.py:31)."""
+
+    raygen_ms: float
+    intersect_ms: float
+    shade_ms: float
+    gather_ms: float
+    frame_ms: float          # one eager frame (trace_depth bounces)
+    trace_depth: int
+
+    def table(self) -> str:
+        per_bounce = [
+            ("Ray generation", self.raygen_ms, 1),
+            ("Intersection", self.intersect_ms, self.trace_depth),
+            ("Shading", self.shade_ms, self.trace_depth),
+            ("Gather", self.gather_ms, self.trace_depth),
+        ]
+        total_est = sum(ms * mult for _, ms, mult in per_bounce)
+        lines = ["=== Performance Statistics (per-stage, isolated calls) ===",
+                 f"{'Stage':<16}{'ms/call':>10}{'calls':>7}{'ms/frame':>10}"
+                 f"{'%':>7}"]
+        for name, ms, mult in per_bounce:
+            lines.append(f"{name:<16}{ms:>10.3f}{mult:>7}{ms * mult:>10.3f}"
+                         f"{100 * ms * mult / total_est:>6.1f}%")
+        pad = f"{'':>10}{'':>7}"
+        lines.append(f"{'SUM (isolated)':<16}{pad}{total_est:>10.3f}")
+        lines.append(f"{'Eager frame':<16}{pad}{self.frame_ms:>10.3f}"
+                     f"   (isolated sum / frame: "
+                     f"{total_est / max(self.frame_ms, 1e-9):.2f}x)")
+        return "\n".join(lines)
+
+
+def _time(fn, device: torch.device, iters: int = 20) -> float:
+    """Mean ms of fn(k) over k = 1..iters, after fn(0), synchronized on
+    `device` before and after. fn consumes k, so that no call repeats
+    another's inputs."""
+    fn(0)
+    _sync(device)
+    t0 = time.perf_counter()
+    for k in range(1, iters + 1):
+        fn(k)
+    _sync(device)
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+@torch.inference_mode()
+def measure_stages(scene, settings, seed: int = 0,
+                   iters: int = 20) -> StageStats:
+    """Raygen, intersect, shade and gather each timed on its own over
+    `iters` calls on the raygen pool of one iteration (the varied eps and
+    iteration keep the calls' inputs distinct), and one eager frame
+    (`render_chunk` of one iteration) timed over `iters` frames."""
+    dev = scene.device
+    pmap = settings.pixel_map()
+
+    def irng(it):
+        return rng.IterationRng(seed, it, pixel_map=pmap,
+                                fast=settings.fast_rng)
+
+    def f_raygen(it):
+        return wavefront.generate_paths(scene, settings, irng(it))
+
+    state = f_raygen(1)
+
+    def f_isect(eps):
+        o = state.origin
+        return intersect.intersect_scene(
+            scene, settings.geom_types, Vec3(o.x + eps, o.y, o.z),
+            state.direction, bvh_impl=settings.bvh_impl)
+
+    t, normal, mat = f_isect(0.0)
+
+    def f_shade(it):
+        u = irng(it).uniforms(0, state.pixel, 4)
+        return bsdf.shade(state.origin, state.direction, state.color,
+                          state.remaining_bounces, t, normal, mat,
+                          scene.materials, u, any_glossy=settings.any_glossy,
+                          any_refractive=settings.any_refractive,
+                          depth_quirk=settings.depth_quirk)
+
+    _, _, color, rb = f_shade(1)
+    img = wavefront.zero_accum(settings, dev)
+
+    def f_gather(eps):
+        done = rb == 0
+        return Vec3(img.x + torch.where(done, color.x + eps, 0.0),
+                    img.y + torch.where(done, color.y, 0.0),
+                    img.z + torch.where(done, color.z, 0.0))
+
+    frame_ms = _time(
+        lambda k: wavefront.render_chunk(scene, settings,
+                                         wavefront.zero_accum(settings, dev),
+                                         k + 1, 1, seed, True), dev, iters)
+    return StageStats(
+        raygen_ms=_time(lambda k: f_raygen(k + 2), dev, iters),
+        intersect_ms=_time(lambda k: f_isect(k * 1e-6), dev, iters),
+        shade_ms=_time(lambda k: f_shade(k + 3), dev, iters),
+        gather_ms=_time(lambda k: f_gather(k * 1e-6), dev, iters),
+        frame_ms=frame_ms,
+        trace_depth=settings.trace_depth,
+    )
 
 
 def ray_survival_report(scene, settings, iteration: int = 10,
