@@ -138,7 +138,15 @@ Phases, each fatal on failure:
      save, and 4 spp after the orbit restarted accumulation; its ms/frame;
  26. the RNG stream API (ops/rng.py Stream), fast and threefry: uniforms
      of (640000, 4) on the card bit-equal to the CPU's, normals within
-     NORMAL_ULP or STREAM_NORMAL_ABS, whichever is larger.
+     NORMAL_ULP or STREAM_NORMAL_ABS, whichever is larger;
+ 27. the benchmark entry points: tools/bench.bench on Cornell 800x800 d8
+     (chunk BENCH_CHUNK, one warm-up, BENCH_REPS reps), then
+     tools/bench_suite.run_row of BENCH_ROWS at their chunks with
+     BENCH_REPS reps and the suite's device_profile pass, the counters
+     reset just before each: the binned row must launch cull, stream and
+     packet, the wide row wide_push; every number finite and the busy
+     share at most 1; ms/frame best and median, device ms, launches and
+     busy share.
 The second-to-last lines are one JSON object with every kernel's numbers and
 the card's name and power limit; the last line is the result object.
 Exits non-zero, printing no result, where torch sees no CUDA device.
@@ -224,6 +232,10 @@ STAGE_ITERS = 10     # phase 24: calls of each stage and frames
 VIEWER_TIMEOUT = 300
 STREAM_LANES = 640000
 STREAM_NORMAL_ABS = 1e-6   # tests/test_torch_rng_stream.py
+BENCH_CHUNK, BENCH_REPS = 5, 2   # phase 27
+# phase 27: suite rows and the kernels each must launch
+BENCH_ROWS = (("teapot d4 binned", ("cull", "stream", "packet")),
+              ("alien d4 wide", ("wide_push",)))
 
 
 def leaves(tree) -> list:
@@ -1258,6 +1270,48 @@ def fullscale_phases(dev, scene, settings, c_scene, c_set) -> None:
             f"ulp ({n_differ:.4%} differ at most)")
 
 
+def bench_phase(dev, c_scene, c_set) -> None:
+    """Phase 27 (the module docstring). Raises on any failure."""
+    import math
+
+    from pathtracer_tpu_torch.ops import kernels
+    from pathtracer_tpu_torch.tools import bench, bench_suite
+
+    t_phase = time.perf_counter()
+    kernels.reset_counts()
+    t = bench.bench(c_scene, c_set, chunk=BENCH_CHUNK, warmup=1,
+                    reps=BENCH_REPS)
+    if not (all(math.isfinite(x) and x > 0 for x in t.reps_ms)
+            and t.best <= t.median <= t.max):
+        raise AssertionError(f"bench.bench cornell: {t.reps_ms}")
+    log(f"bench.bench cornell {c_set.width}x{c_set.height} "
+        f"d{c_set.trace_depth}, chunk {BENCH_CHUNK}: {t.best:.3f} ms/frame "
+        f"best, {t.median:.3f} median of {t.reps_ms}; launches "
+        f"{[(k, v) for k, v in kernels.LAUNCHES.items() if v]}")
+    for name, want in BENCH_ROWS:
+        rec = bench_suite.run_row(bench_suite.row_named(name), dev,
+                                  reps=BENCH_REPS)
+        log(f"bench_suite {bench_suite.row_line(rec)}; "
+            f"{rec['traced_wall_ms']:.2f} ms traced wall, "
+            f"{rec['frames']} frames")
+        if rec["error"]:
+            raise AssertionError(f"{name}: {rec['error']}")
+        missing = [k for k in want if not rec["kernel_launches"].get(k)]
+        if missing:
+            raise AssertionError(f"{name} never launched {missing}")
+        nums = [rec[k] for k in ("ms_per_frame", "median_ms", "max_ms",
+                                 "primary_mrays_per_s", "traced_wall_ms",
+                                 "device_ms", "device_kernels",
+                                 "busy_share", "load_s")]
+        nums += rec["reps_ms"] + list(rec["kernel_launches"].values())
+        if not all(isinstance(x, (int, float)) and math.isfinite(x)
+                   for x in nums):
+            raise AssertionError(f"{name}: a field is not finite: {rec}")
+        if not 0 < rec["busy_share"] <= 1:
+            raise AssertionError(f"{name}: busy share {rec['busy_share']}")
+    log(f"phase 27: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1841,7 +1895,10 @@ def main() -> int:
     # -- 23.-26. full-scale parity, perfstats, the viewer, the stream API -----
     fullscale_phases(dev, scene, settings, c_scene, c_set)
 
-    # -- 27. results -----------------------------------------------------------
+    # -- 27. the benchmark entry points ---------------------------------------
+    bench_phase(dev, c_scene, c_set)
+
+    # -- 28. results -----------------------------------------------------------
     log(json.dumps({"kernels": list(report.values())}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

@@ -10,5 +10,9 @@ pathtracer_tpu_torch.tools.multicard`); and the full-scale golden parity
 (`python -m pathtracer_tpu_torch.tools.golden_parity`), the per-stage
 timings (`python -m pathtracer_tpu_torch.tools.perfstats`) and the terminal
 viewer (`python -m pathtracer_tpu_torch.tools.viewer`), the counterparts of
-the repo's tools/golden_parity.py, tools/perfstats.py and viewer.py.
+the repo's tools/golden_parity.py, tools/perfstats.py and viewer.py; and
+the benchmark entry points, the headline line (`python -m
+pathtracer_tpu_torch.tools.bench`) and the reference's measurement matrix
+(`python -m pathtracer_tpu_torch.tools.bench_suite`), the counterparts of
+the repo's bench.py and tools/bench_suite.py.
 """
