@@ -146,7 +146,18 @@ Phases, each fatal on failure:
      reset just before each: the binned row must launch cull, stream and
      packet, the wide row wide_push; every number finite and the busy
      share at most 1; ms/frame best and median, device ms, launches and
-     busy share.
+     busy share;
+ 28. the mesh path's measurement tools (pathtracer_tpu_torch/tools), each
+     once: trace_stats.split_frames on teapot 800x800 d4 (binned) and
+     Cornell 800x800 d8, TOOL_FRAMES traced frames each: the stages' device
+     ms (and the unattributed) must sum to the traced device total within
+     TOOL_SHARE_TOL, and on teapot the pt_mi_* stages must hold the
+     kernels cull, stream and packet; sweep_mesh modes prod and split on
+     the teapot bounce-ray pool (TOOL_REPS calls a row); diag_bins on that
+     pool; bench_sorts with m = 4 (its radix sort must equal torch.sort's
+     keys and payloads first); exp_r5b arms base and p2, one round, teapot
+     256x256 d4: both images bit-equal; sim_wide on 65,536 rays of the
+     teapot's 256x256 pool.
 The second-to-last lines are one JSON object with every kernel's numbers and
 the card's name and power limit; the last line is the result object.
 Exits non-zero, printing no result, where torch sees no CUDA device.
@@ -236,6 +247,9 @@ BENCH_CHUNK, BENCH_REPS = 5, 2   # phase 27
 # phase 27: suite rows and the kernels each must launch
 BENCH_ROWS = (("teapot d4 binned", ("cull", "stream", "packet")),
               ("alien d4 wide", ("wide_push",)))
+TOOL_FRAMES = 2      # phase 28: traced frames of each trace_stats scene
+TOOL_REPS = 5        # phase 28: timed calls of each sweep_mesh row
+TOOL_SHARE_TOL = 0.01   # the stages' sum within 1% of the traced total
 
 
 def leaves(tree) -> list:
@@ -1312,6 +1326,55 @@ def bench_phase(dev, c_scene, c_set) -> None:
     log(f"phase 27: {time.perf_counter() - t_phase:.1f} s")
 
 
+def tools_phase(dev) -> None:
+    """Phase 28 (the module docstring). Raises on any failure."""
+    import math
+
+    from pathtracer_tpu_torch import load_scene
+    from pathtracer_tpu_torch.tools import (bench_sorts, diag_bins, exp_r5b,
+                                            sim_wide, sweep_mesh,
+                                            trace_stats)
+
+    t_phase = time.perf_counter()
+    for path in (TEAPOT, CORNELL):
+        scene, settings = load_scene(path, dev)
+        res = trace_stats.split_frames(scene, settings, TOOL_FRAMES)
+        log(trace_stats.table(res))
+        total = res["device_total_ms"]
+        shares = sum(res["device_ms"][s]
+                     for s in trace_stats.STAGES + (trace_stats.OTHER,))
+        if not (total > 0 and abs(shares - total) <= TOOL_SHARE_TOL * total):
+            raise AssertionError(f"trace_stats {path}: stages sum to "
+                                 f"{shares:.3f} of {total:.3f} device ms")
+        if path == TEAPOT:
+            for stage, frag in (("pt_mi_cull", "cull_kernel"),
+                                ("pt_mi_stream", "stream_kernel"),
+                                ("pt_mi_fb", "packet_kernel")):
+                if not any(frag in k for k in res["kernels"][stage]):
+                    raise AssertionError(f"trace_stats: no {frag} in "
+                                         f"{stage}")
+    pool = sweep_mesh.make_pool(TEAPOT, dev)
+    for mode in ("prod", "split"):
+        rows = sweep_mesh.sweep(pool, mode, reps=TOOL_REPS, out=log)
+        if not all(math.isfinite(ms) and ms > 0 for _, ms in rows):
+            raise AssertionError(f"sweep_mesh {mode}: {rows}")
+    stats = diag_bins.diagnose(pool, out=log)
+    if not stats or stats[0] is None or stats[0]["live"] <= 0:
+        raise AssertionError(f"diag_bins: {stats}")
+    sorts = bench_sorts.bench(dev, m=4, out=log)
+    if not all(math.isfinite(ms) and ms > 0 for ms in sorts.values()):
+        raise AssertionError(f"bench_sorts: {sorts}")
+    arms = exp_r5b.run_arms(TEAPOT, ["base", "p2"], dev,
+                            {"RES": [256, 256], "DEPTH": 4}, rounds=1,
+                            out=log)
+    if arms["equal"] != {"base": True, "p2": True}:
+        raise AssertionError(f"exp_r5b: images differ {arms['equal']}")
+    sim = sim_wide.main(["--rays", "65536"])
+    if not sim["node"] > 0 < sim["leaf"]:
+        raise AssertionError(f"sim_wide: {sim}")
+    log(f"phase 28: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1898,7 +1961,11 @@ def main() -> int:
     # -- 27. the benchmark entry points ---------------------------------------
     bench_phase(dev, c_scene, c_set)
 
-    # -- 28. results -----------------------------------------------------------
+    # -- 28. the mesh path's measurement tools --------------------------------
+    tools_phase(dev)
+
+    # -- 29. results ----------------------------------------------------------
+
     log(json.dumps({"kernels": list(report.values())}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

@@ -26,6 +26,12 @@ the sorted mode then draws for its permuted lanes, the tiled mode folds the
 tile index into each tile's draws, and a shard's `key_salt` (its index)
 into its key, so those images differ from the masked one as the JAX
 package's do.
+
+Each stage runs under a torch.profiler range named as the JAX package's
+scopes (engine/wavefront.py:97-145): pt_raygen (generate_paths), and in
+every mode's bounce pt_intersect, pt_shade (the draws and shade) and
+pt_gather (the image add and the gathered marker). tools/trace_stats.py
+charges a frame's device kernels to them.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..ops import rng
 from ..ops.bsdf import shade
@@ -64,23 +71,24 @@ def generate_paths(scene: SceneArrays, settings: RenderSettings,
     if n is None:
         n = settings.pixel_count
     dev = scene.device
-    lanes = torch.arange(n, dtype=torch.int64, device=dev)
-    jitter = irng.normals(-1, lanes, 2) if settings.jitter else None
-    dof_u = irng.uniforms(-2, lanes, 2) if settings.dof else None
-    pixel_ids = settings.pixel_map()(lanes + pixel_offset if pixel_offset
-                                     else lanes)
-    origin, direction = generate_camera_rays(
-        scene.camera, settings.width, settings.height, jitter, dof_u,
-        pixel_idx=pixel_ids)
-    one = torch.ones(n, device=dev)
-    return PathState(
-        origin=origin,
-        direction=direction,
-        color=Vec3(one, one, one),
-        remaining_bounces=torch.full((n,), settings.trace_depth,
-                                     dtype=torch.int32, device=dev),
-        pixel=lanes,
-    )
+    with record_function("pt_raygen"):
+        lanes = torch.arange(n, dtype=torch.int64, device=dev)
+        jitter = irng.normals(-1, lanes, 2) if settings.jitter else None
+        dof_u = irng.uniforms(-2, lanes, 2) if settings.dof else None
+        pixel_ids = settings.pixel_map()(lanes + pixel_offset if pixel_offset
+                                         else lanes)
+        origin, direction = generate_camera_rays(
+            scene.camera, settings.width, settings.height, jitter, dof_u,
+            pixel_idx=pixel_ids)
+        one = torch.ones(n, device=dev)
+        return PathState(
+            origin=origin,
+            direction=direction,
+            color=Vec3(one, one, one),
+            remaining_bounces=torch.full((n,), settings.trace_depth,
+                                         dtype=torch.int32, device=dev),
+            pixel=lanes,
+        )
 
 
 def bounce_step(scene: SceneArrays, settings: RenderSettings,
@@ -89,27 +97,42 @@ def bounce_step(scene: SceneArrays, settings: RenderSettings,
     """One bounce, masked mode: intersect -> shade -> gather
     (pathtrace.cu:752-894 body). Adds the lanes that just finished to
     `image` in place and returns the new path state."""
-    t, normal, mat_id = intersect_scene(
-        scene, settings.geom_types, state.origin, state.direction,
-        bvh_impl=settings.bvh_impl, active=state.remaining_bounces > 0)
+    with record_function("pt_intersect"):
+        t, normal, mat_id = intersect_scene(
+            scene, settings.geom_types, state.origin, state.direction,
+            bvh_impl=settings.bvh_impl, active=state.remaining_bounces > 0)
+    origin, direction, color, rb = _shade(scene, settings, irng, depth,
+                                          state, t, normal, mat_id)
+    with record_function("pt_gather"):
+        rb = _gather(image, color, rb)
+    return PathState(origin, direction, color, rb, state.pixel)
 
-    u = irng.uniforms(depth, state.pixel, 5 if settings.rr_start else 4)
-    origin, direction, color, rb = shade(
-        state.origin, state.direction, state.color, state.remaining_bounces,
-        t, normal, mat_id, scene.materials, u,
-        any_glossy=settings.any_glossy,
-        any_refractive=settings.any_refractive,
-        depth_quirk=settings.depth_quirk,
-        rr_depth=depth, rr_start=settings.rr_start)
 
-    # gatherImage: add lanes whose remaining_bounces just reached 0, then
-    # mark them gathered (-1) so they are never added twice
-    # (pathtrace.cu:574-589)
+def _shade(scene, settings, irng, depth, state, t, normal, mat_id,
+           salt=None):
+    """The bounce's draws and shade under the pt_shade range: the next
+    (origin, direction, color, remaining_bounces). `salt`: the tiled
+    mode's tile index."""
+    with record_function("pt_shade"):
+        u = irng.uniforms(depth, state.pixel, 5 if settings.rr_start else 4,
+                          salt=salt)
+        return shade(
+            state.origin, state.direction, state.color,
+            state.remaining_bounces, t, normal, mat_id, scene.materials, u,
+            any_glossy=settings.any_glossy,
+            any_refractive=settings.any_refractive,
+            depth_quirk=settings.depth_quirk,
+            rr_depth=depth, rr_start=settings.rr_start)
+
+
+def _gather(image: Vec3, color: Vec3, rb: torch.Tensor) -> torch.Tensor:
+    """gatherImage (pathtrace.cu:574-589): adds the lanes whose
+    remaining_bounces just reached 0 to `image` in place, and returns rb
+    with them marked gathered (-1), so they are never added twice."""
     newly_done = rb == 0
     for img_c, col_c in zip(image, color):
         img_c.add_(torch.where(newly_done, col_c, 0.0))
-    rb = torch.where(newly_done, -1, rb)
-    return PathState(origin, direction, color, rb, state.pixel)
+    return torch.where(newly_done, -1, rb)
 
 
 def _sorter(n: int):
@@ -127,22 +150,17 @@ def bounce_step_sorted(scene: SceneArrays, settings: RenderSettings,
     across bounces with their pixel ids; lanes that finish are marked
     gathered (-1) without an image add, and render_iteration gathers them
     after the loop. `image` is untouched."""
-    t, normal, mat_id = intersect_scene(
-        scene, settings.geom_types, state.origin, state.direction,
-        bvh_impl=settings.bvh_impl)
+    with record_function("pt_intersect"):
+        t, normal, mat_id = intersect_scene(
+            scene, settings.geom_types, state.origin, state.direction,
+            bvh_impl=settings.bvh_impl)
     keys = torch.where(t > 0.0, mat_id, 0)
     _, (state, t, normal, mat_id) = _sorter(t.shape[0])(
         keys, (state, t, normal, mat_id))
-
-    u = irng.uniforms(depth, state.pixel, 5 if settings.rr_start else 4)
-    origin, direction, color, rb = shade(
-        state.origin, state.direction, state.color, state.remaining_bounces,
-        t, normal, mat_id, scene.materials, u,
-        any_glossy=settings.any_glossy,
-        any_refractive=settings.any_refractive,
-        depth_quirk=settings.depth_quirk,
-        rr_depth=depth, rr_start=settings.rr_start)
-    rb = torch.where(rb == 0, -1, rb)
+    origin, direction, color, rb = _shade(scene, settings, irng, depth,
+                                          state, t, normal, mat_id)
+    with record_function("pt_gather"):
+        rb = torch.where(rb == 0, -1, rb)
     return PathState(origin, direction, color, rb, state.pixel)
 
 
@@ -166,22 +184,14 @@ def bounce_step_tiled(scene: SceneArrays, settings: RenderSettings,
         if not live[k]:
             out.append(s)
             continue
-        t, normal, mat_id = intersect_scene(
-            scene, settings.geom_types, s.origin, s.direction,
-            bvh_impl=settings.bvh_impl)
-        u = irng.uniforms(depth, s.pixel, 5 if settings.rr_start else 4,
-                          salt=k)
-        origin, direction, color, rb = shade(
-            s.origin, s.direction, s.color, s.remaining_bounces,
-            t, normal, mat_id, scene.materials, u,
-            any_glossy=settings.any_glossy,
-            any_refractive=settings.any_refractive,
-            depth_quirk=settings.depth_quirk,
-            rr_depth=depth, rr_start=settings.rr_start)
-        newly_done = rb == 0
-        for img_c, col_c in zip(image, color):
-            img_c[sl].add_(torch.where(newly_done, col_c, 0.0))
-        rb = torch.where(newly_done, -1, rb)
+        with record_function("pt_intersect"):
+            t, normal, mat_id = intersect_scene(
+                scene, settings.geom_types, s.origin, s.direction,
+                bvh_impl=settings.bvh_impl)
+        origin, direction, color, rb = _shade(scene, settings, irng, depth,
+                                              s, t, normal, mat_id, salt=k)
+        with record_function("pt_gather"):
+            rb = _gather(Vec3(*(c[sl] for c in image)), color, rb)
         out.append(PathState(origin, direction, color, rb, s.pixel))
     return tree_map(lambda *parts: torch.cat(parts), *out)
 

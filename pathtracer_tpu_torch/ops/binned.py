@@ -45,11 +45,21 @@ chosen by the same arguments and module flags, which are read at call time
 debug_tids=True also returns each pass's post-bin want ids. The expansion
 pipeline takes neither STREAM_UV nor BIN_CONTIGUOUS, and the slot pipeline
 not STREAM_UV, as in the JAX package.
-Left out on purpose: the diagnostics that give wrong results on purpose
-(STREAM_OFF, CULL_CHEAP, FALLBACK=False), and the TPU tiling knobs
-(CULL_ROWS, STREAM_ROWS, FB_ROWS, SORT_CHUNK, STREAM_ROW_CHUNK,
-DEFER_NORMAL), which change no result and have no counterpart in the
-kernels' designs here.
+
+Three ablation flags GIVE WRONG RESULTS ON PURPOSE. They exist only so that
+the measurement tools (tools/sweep_mesh.py `split` and `csplit`,
+tools/profile_binned2.py) can split the pipeline's cost by stage, as the
+JAX package's do (binned.py:188, 209-210); no entry point, CLI flag or
+RenderSettings field reaches them:
+  CULL_CHEAP = True   each pass's cull is skipped: a live lane wants
+                      treelet 0 at t0 0 (binned.py:1055);
+  STREAM_OFF = True   each pass's stream is skipped: t -1, zero normals,
+                      material -1 (binned.py:1072);
+  FALLBACK = False    no final cull, compaction or exact finish, and no
+                      minority-want deferral (binned.py:1118, 950).
+Left out: the TPU tiling knobs (CULL_ROWS, STREAM_ROWS, FB_ROWS,
+SORT_CHUNK, STREAM_ROW_CHUNK, DEFER_NORMAL), which change no result and
+have no counterpart in the kernels' designs here.
 
 Each kernel wrapper (`cull`, `stream`) launches its CUDA kernel for CUDA
 tensors and runs the plain PyTorch version beside it for CPU tensors. The
@@ -96,6 +106,10 @@ CHUNK_GATE = False
 BIN_CONTIGUOUS = False
 CAND_SORT = True
 CAND_KEY = "pid"
+# the ablations that give wrong results on purpose (module docstring)
+FALLBACK = True
+STREAM_OFF = False
+CULL_CHEAP = False
 
 
 # ---------------------------------------------------------------------------
@@ -423,7 +437,7 @@ def mesh_intersect_binned(scene, mesh_roots, origin: Vec3, direction: Vec3,
         fb_compact = FB_COMPACT
     if fb_compact is None:
         fb_compact = n_tris > PASSES_BIG_TRIS
-    defer = MIN_SUPPORT > 1
+    defer = MIN_SUPPORT > 1 and FALLBACK
     # the stream's forms; the default one is called with no keywords
     s_kw = {}
     if uv:
@@ -564,7 +578,13 @@ def mesh_intersect_binned(scene, mesh_roots, origin: Vec3, direction: Vec3,
 
     dbg_tids = []
     for _ in range(passes):
-        [tid], [tt0] = cull_k(1, ox, oy, oz, dx, dy, dz, bound, pt0, pid)
+        if CULL_CHEAP:
+            tid = torch.where(pid < TREELET_NONE, 0, TREELET_NONE).to(
+                torch.int32)
+            tt0 = torch.zeros_like(pt0)
+        else:
+            [tid], [tt0] = cull_k(1, ox, oy, oz, dx, dy, dz, bound, pt0,
+                                  pid)
         # bin: sort by wanted id (NONE lanes cluster at segment ends)
         extra = [inc] if defer else []
         (tid, ox, oy, oz, dx, dy, dz, bound, tt0, lane, *rest) = _seg_sort(
@@ -574,9 +594,14 @@ def mesh_intersect_binned(scene, mesh_roots, origin: Vec3, direction: Vec3,
             inc = rest[-1]
         if debug_tids:
             dbg_tids.append(tid)
-        t, *outs, o5 = run_stream(ox, oy, oz, dx, dy, dz, bound, tid)
-        if defer:
-            inc = torch.maximum(inc, o5)
+        if STREAM_OFF:
+            t = torch.full_like(bound, -1.0)
+            outs = [torch.zeros_like(bound) for _ in range(3)] + [
+                torch.full_like(tid, -1)]
+        else:
+            t, *outs, o5 = run_stream(ox, oy, oz, dx, dy, dz, bound, tid)
+            if defer:
+                inc = torch.maximum(inc, o5)
         hit = t > 0.0
         new = [t, outs[0], outs[1], outs[3]] if uv else [t] + outs
         best = [torch.where(hit, a, b) for a, b in zip(new, best)]
@@ -607,26 +632,28 @@ def mesh_intersect_binned(scene, mesh_roots, origin: Vec3, direction: Vec3,
 
     # one more cull after the last stream: lanes with a want left under the
     # tightened bound, and the deferred lanes, finish in the exact walk
-    [tid_f], _ = cull_k(1, ox, oy, oz, dx, dy, dz, bound, pt0, pid)
-    remaining = (pid < TREELET_NONE) & (tid_f < TREELET_NONE)
-    if defer:
-        remaining = remaining | (inc > 0)
-    if fb_compact:
-        # cluster the residual lanes at the head of every segment
-        key = torch.where(remaining, 0, 1).to(torch.int32)
-        (key, ox, oy, oz, dx, dy, dz, bound, lane,
-         bt, bnx, bny, bnz, bmat) = _seg_sort(
-            key, ox, oy, oz, dx, dy, dz, bound, lane, bt, bnx, bny, bnz, bmat)
-        remaining = key == 0
-    t, nrm, mat = _packet_fallback(scene, mesh_roots, Vec3(ox, oy, oz),
-                                   Vec3(dx, dy, dz), remaining, bound,
-                                   fallback_impl)
-    hit = t > 0.0
-    bt = torch.where(hit, t, bt)
-    bnx = torch.where(hit, nrm.x, bnx)
-    bny = torch.where(hit, nrm.y, bny)
-    bnz = torch.where(hit, nrm.z, bnz)
-    bmat = torch.where(hit, mat, bmat)
+    if FALLBACK:
+        [tid_f], _ = cull_k(1, ox, oy, oz, dx, dy, dz, bound, pt0, pid)
+        remaining = (pid < TREELET_NONE) & (tid_f < TREELET_NONE)
+        if defer:
+            remaining = remaining | (inc > 0)
+        if fb_compact:
+            # cluster the residual lanes at the head of every segment
+            key = torch.where(remaining, 0, 1).to(torch.int32)
+            (key, ox, oy, oz, dx, dy, dz, bound, lane,
+             bt, bnx, bny, bnz, bmat) = _seg_sort(
+                key, ox, oy, oz, dx, dy, dz, bound, lane, bt, bnx, bny, bnz,
+                bmat)
+            remaining = key == 0
+        t, nrm, mat = _packet_fallback(scene, mesh_roots,
+                                       Vec3(ox, oy, oz), Vec3(dx, dy, dz),
+                                       remaining, bound, fallback_impl)
+        hit = t > 0.0
+        bt = torch.where(hit, t, bt)
+        bnx = torch.where(hit, nrm.x, bnx)
+        bny = torch.where(hit, nrm.y, bny)
+        bnz = torch.where(hit, nrm.z, bnz)
+        bmat = torch.where(hit, mat, bmat)
 
     # restore lane order
     lane, bt, bnx, bny, bnz, bmat = _seg_sort(lane, bt, bnx, bny, bnz, bmat)

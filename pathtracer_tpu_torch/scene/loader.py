@@ -127,7 +127,9 @@ def orbit_camera(cam: dict, zoom: float, theta: float, phi: float,
 
 def load_scene(path: str, device, orbit: bool = True,
                overrides: Optional[dict] = None, brute_tables: bool = False,
-               wide_tables: bool = False, bvh_impl: Optional[str] = None
+               wide_tables: bool = False, bvh_impl: Optional[str] = None,
+               max_leaf: Optional[int] = None,
+               tre_rows: Optional[int] = None
                ) -> Tuple[SceneArrays, RenderSettings]:
     """Load a scene JSON; returns (tensors on `device`, static settings).
 
@@ -140,7 +142,10 @@ def load_scene(path: str, device, orbit: bool = True,
     (bvh_impl="wide" / "wide_nosort", the binned wide fallback).
     `bvh_impl`, when given, becomes the settings' mesh intersector and
     loads the tables it needs (render.py's --bvh handling); "jnp" also
-    builds the per-triangle SoA table, which only that walk reads."""
+    builds the per-triangle SoA table, which only that walk reads.
+    `max_leaf` overrides every mesh's fat-leaf size and `tre_rows` the
+    scene's rows-per-treelet bound (scene.tre_rows), as the JAX loader's
+    arguments do (the measurement tools' treelet-size sweeps)."""
     if bvh_impl == "brute":
         brute_tables = True
     if bvh_impl in ("wide", "wide_nosort"):
@@ -190,7 +195,8 @@ def load_scene(path: str, device, orbit: bool = True,
             tris = obj_loader.load_obj(resolved, override_id, trans, rotat, scal,
                                        materials)
             n_tris = len(tris["v0"])
-            ml = 288 if n_tris > BIG_MESH_TRIS else 96
+            ml = max_leaf if max_leaf is not None else (
+                288 if n_tris > BIG_MESH_TRIS else 96)
             scene_tre_rows = max(scene_tre_rows, -(-ml // 6))
             nodes, reordered = build_bvh(tris, max_leaf=ml)
             nodes, reordered = align_leaves(nodes, reordered)
@@ -280,7 +286,9 @@ def load_scene(path: str, device, orbit: bool = True,
     wide_data = concat_wide(wide_meshes) if wide_meshes else None
     arrays = make_scene_arrays(geoms, materials, bvh_nodes, bvh_tris, cam,
                                device, brute_tables=brute_tables,
-                               wide_data=wide_data, tre_rows=scene_tre_rows,
+                               wide_data=wide_data,
+                               tre_rows=(tre_rows if tre_rows is not None
+                                         else scene_tre_rows),
                                triangle_table=bvh_impl == "jnp")
     return arrays, settings
 

@@ -16,7 +16,9 @@ one warm-up iteration:
     grouped by kind (`kernel_kind`); per frame it gives each kind's device
     time and launches, the traced wall time, and the device's busy share
     (device kernel time over wall time: the engine issues everything on one
-    stream, so kernels barely overlap);
+    stream, so kernels barely overlap). The device-side spans of the
+    engine's and the binned intersector's profiler ranges are no kernels
+    and are left out (`is_range_span`);
   * stage_times: each stage function wrapped in a timer that synchronizes
     the device before and after it, so a stage's time includes the host
     time of issuing its ops. Stages nest (a sort inside the mesh pipeline
@@ -92,6 +94,20 @@ KINDS = (
 )
 
 
+# the port's torch.profiler ranges (engine/wavefront.py, ops/binned.py)
+RANGES = frozenset(("pt_raygen", "pt_intersect", "pt_shade", "pt_gather",
+                    "pt_mi_sort", "pt_mi_cull", "pt_mi_stream", "pt_mi_fb"))
+
+
+def is_range_span(evt) -> bool:
+    """A range's own device-side span (the GPU user annotation that a
+    record_function range gets when the CPU and the card are traced
+    together): it covers the range's kernels, so counting it as a kernel
+    counts them twice."""
+    return evt.key in RANGES or bool(getattr(evt, "is_user_annotation",
+                                             False))
+
+
 def kernel_kind(name: str) -> str:
     """The kind a device kernel's (mangled) name belongs to."""
     low = name.lower()
@@ -162,7 +178,7 @@ def device_profile(scene, settings, iters: int = 3, seed: int = 0,
         return out
     by_kind = {}
     for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
+        if evt.device_type != DeviceType.CUDA or is_range_span(evt):
             continue
         kind = kernel_kind(evt.key)
         ms, n = by_kind.get(kind, (0.0, 0))
