@@ -25,17 +25,26 @@ Phases, each fatal on failure:
      plain version), and beside its bound the floor of its bit-exact,
      unfused arithmetic;
   4. teapot 800x800 d4 through pathtracer_tpu_torch.render on the default
-     path (binned), with the launch counters reset just before and read
-     just after: every kernel of the path must have run, and the image
-     must be finite and not all zero;
-  5. teapot 64x64 d4, 2 iterations, with the kernels and with the plain
-     versions on the card: the images must agree;
+     path (binned): ms/frame untraced, then a counted render under
+     torch.profiler with the launch counters reset just before and read
+     just after: every kernel of the path must have run, the counts must
+     equal the port's kernels the profiler saw run on the card by name
+     (`traced`), and the image must be finite and not all zero.
+     render_chunk runs the compiled frame (engine/wavefront.py: one CUDA
+     graph replay an iteration, captured by the warm-up render) wherever
+     its rule admits the settings, here and in every later phase; a replay
+     counts the launches its capture recorded (ops/kernels.py), which the
+     profiled run holds to what ran;
+  5. teapot 64x64 d4, 2 iterations, with the kernels (compiled) and with
+     the plain versions on the card (render_chunk_eager: the plain
+     versions read the host): the images must agree;
   6. Cornell 800x800 d8 (no kernel on its path): ms/frame;
   7. the other mesh paths: teapot 800x800 d4 through bvh_impl "wide" (push
      and mask variants), "wide_nosort", "sorted", "brute" and "binned"
-     with the 8-wide fallback, each with the counters reset just before and
-     read just after: each must launch its kernels, and its image must be
-     finite and not all zero;
+     with the 8-wide fallback, each timed untraced and then counted as in
+     phase 4 (`traced`: the counts held to the kernels seen on the card):
+     each must launch its kernels, and its image must be finite and not
+     all zero;
   8. teapot 64x64 d4, 2 iterations, through "wide" and "brute": each image
      must agree with the "binned" one;
   9. the scan kernel (csrc/scan.cu) against its plain version: the bounce-1
@@ -97,7 +106,8 @@ Phases, each fatal on failure:
      single-process render bit for bit, the ranks' new albedos each other
      bit for bit and phase 18's single-process step within GRAD_RTOL, and
      each teapot rank must launch cull, stream and packet; a worker that
-     outlives WORKER_TIMEOUT is killed and fails the phase;
+     outlives WORKER_TIMEOUT is killed and fails the phase (phases 18-20
+     render through the compiled frame, a graph a shard);
  21. (d) parallel/dryrun.dryrun_multichip(1) on the card;
  22. the binned pipeline's other forms: the teapot bounce-1 pool's cull and
      stream calls recorded under EXPAND=2, EXPAND=4, SLOTS=3,
@@ -125,8 +135,9 @@ Phases, each fatal on failure:
      packet must launch, the image must be finite; ms/frame, launches a
      frame and B1-B3's device ms a frame (utils/profiling.device_profile
      over one frame), and the scene's union rows and BVH nodes beside the
-     kernels' shared-memory limits; then one more animal frame with cull,
-     stream and packet recorded: the lanes of every call by bounce, and
+     kernels' shared-memory limits, and the compiled frame's graph pool;
+     then one more animal frame through the eager loop with cull, stream
+     and packet recorded: the lanes of every call by bounce, and
      each call of ANIMAL_CHECK_BOUNCES against its plain version bit for
      bit (the 1,440,000-lane pool at this path's shapes);
  24. measure_stages (utils/profiling.py, tools/perfstats.py's table) on
@@ -157,7 +168,23 @@ Phases, each fatal on failure:
      pool; bench_sorts with m = 4 (its radix sort must equal torch.sort's
      keys and payloads first); exp_r5b arms base and p2, one round, teapot
      256x256 d4: both images bit-equal; sim_wide on 65,536 rays of the
-     teapot's 256x256 pool.
+     teapot's 256x256 pool;
+ 29. the compiled frame on CF_SCENES (Cornell and the open scene 800x800
+     d8, teapot 800x800 d4 binned and wide, alien 800x800 d4 binned): the
+     settings rule must admit each; CF_ITERS iterations of render_chunk
+     (compiled) and of render_chunk_eager, the counters reset before each:
+     the accums bit-equal and the launches (and forms) equal; then
+     CF_ROUNDS rounds of (compiled, eager, eager, compiled) chunks, each
+     ending in a synchronize: ms/frame best and median of each;
+     utils/profiling.device_profile of one frame of each: device ms,
+     device kernels, busy share and host launch calls a frame; the
+     capture's seconds and its graph pool's bytes; the replay's time by
+     CUDA events; and, on the mesh scenes, CF_RECORD_REPS replays and as
+     many eager runs of the same iteration under torch.profiler (`traced`):
+     the port's kernels seen on the card by name must equal the counters,
+     the capture's record times the replays and the eager runs' (the total
+     of the other device events is logged where it differs: elementwise
+     kernels change their names).
 The second-to-last lines are one JSON object with every kernel's numbers and
 the card's name and power limit; the last line is the result object.
 Exits non-zero, printing no result, where torch sees no CUDA device.
@@ -250,6 +277,18 @@ BENCH_ROWS = (("teapot d4 binned", ("cull", "stream", "packet")),
 TOOL_FRAMES = 2      # phase 28: traced frames of each trace_stats scene
 TOOL_REPS = 5        # phase 28: timed calls of each sweep_mesh row
 TOOL_SHARE_TOL = 0.01   # the stages' sum within 1% of the traced total
+# phase 29: the compiled frame against the eager loop on these scenes
+# (label, file, resolution, depth, --bvh); CF_ITERS iterations held bit for
+# bit, CF_ROUNDS rounds of (compiled, eager, eager, compiled) chunks of
+# CF_CHUNK iterations timed, one frame of each profiled (an eager frame's
+# trace takes seconds to read); CF_RECORD_REPS replays of the mesh scenes
+# against as many eager runs of the same iteration
+CF_SCENES = (("cornell", CORNELL, 800, 8, None),
+             ("open scene", "scenes/open_test_scene.json", 800, 8, None),
+             ("teapot binned", TEAPOT, 800, 4, "binned"),
+             ("teapot wide", TEAPOT, 800, 4, "wide"),
+             ("alien binned", ANIMAL, 800, 4, "binned"))
+CF_ITERS, CF_CHUNK, CF_ROUNDS, CF_RECORD_REPS = 4, 3, 1, 2
 
 
 def leaves(tree) -> list:
@@ -361,6 +400,16 @@ def render_ms(render, scene, settings, iters: int):
     img = render(scene, settings, iterations=iters, seed=0)
     torch.cuda.synchronize()
     return img, 1000.0 * (time.perf_counter() - t0) / iters
+
+
+def eager_image(scene, settings, iters: int) -> np.ndarray:
+    """render's image of `iters` iterations (seed 0) through the eager loop
+    (engine/wavefront.render_chunk_eager), for patched stages or kernel
+    wrappers that must see every call or that read the host."""
+    from pathtracer_tpu_torch.engine import wavefront
+    acc = wavefront.zero_accum(settings, scene.device)
+    wavefront.render_chunk_eager(scene, settings, acc, 1, iters, 0, True)
+    return wavefront.lanes_to_image(acc * (1.0 / float(iters)), settings)
 
 
 def image_agreement(name, img, ref) -> None:
@@ -1057,13 +1106,12 @@ def forms_phase(dev, scene, settings, state, live, c_scene, c_set,
 
 
 def animal_kernel_calls(a_scene, a_set) -> None:
-    """Phase 23's kernel check at full width: one animal frame through
-    render with cull, stream and packet recorded (the bounce counted at
-    each intersect_scene call of the bounce loop); logs every call's lanes
-    by bounce and holds each call of ANIMAL_CHECK_BOUNCES against its plain
+    """Phase 23's kernel check at full width: one animal frame through the
+    eager loop (every call recorded as it runs) with cull, stream and
+    packet recorded (the bounce counted at each intersect_scene call of the
+    bounce loop); logs every call's lanes by bounce and holds each call of ANIMAL_CHECK_BOUNCES against its plain
     version bit for bit. Raises on any failure."""
     import torch
-    from pathtracer_tpu_torch import render
     from pathtracer_tpu_torch.engine import wavefront
     from pathtracer_tpu_torch.ops import binned, bvh_packet
     from pathtracer_tpu_torch.utils.kernel_bench import cuda_ms
@@ -1097,8 +1145,9 @@ def animal_kernel_calls(a_scene, a_set) -> None:
                    ([0, 1, 2, 3], [4], [0])),
     }
     with torch.inference_mode():
+        # the eager loop: every call is recorded as it runs
         with mock.patch.object(wavefront, "intersect_scene",
-                               counting(wavefront.intersect_scene)), \
+                                  counting(wavefront.intersect_scene)), \
                 mock.patch.object(binned, "cull",
                                   recording("cull", binned.cull)), \
                 mock.patch.object(binned, "stream",
@@ -1106,7 +1155,10 @@ def animal_kernel_calls(a_scene, a_set) -> None:
                 mock.patch.object(bvh_packet, "packet_walk",
                                   recording("packet",
                                             bvh_packet.packet_walk)):
-            render(a_scene, a_set, iterations=1, seed=0)
+            wavefront.render_chunk_eager(a_scene, a_set,
+                                         wavefront.zero_accum(
+                                             a_set, a_scene.device),
+                                         1, 1, 0, True)
         torch.cuda.synchronize()
         for b in sorted(lanes):
             log(f"animal frame, bounce {b}: lanes a call "
@@ -1151,6 +1203,7 @@ def fullscale_phases(dev, scene, settings, c_scene, c_set) -> None:
 
     import torch
     from pathtracer_tpu_torch import load_scene, render
+    from pathtracer_tpu_torch.engine import wavefront
     from pathtracer_tpu_torch.ops import bvh_packet, kernels, rng
     from pathtracer_tpu_torch.tools.golden_parity import (ENVELOPE_SPP,
                                                           check_envelope,
@@ -1198,6 +1251,12 @@ def fullscale_phases(dev, scene, settings, c_scene, c_set) -> None:
     torch.cuda.synchronize()
     a_ms = 1000.0 * (time.perf_counter() - t0) / ANIMAL_SPP
     launches = {k: v / ANIMAL_SPP for k, v in kernels.LAUNCHES.items() if v}
+    pool = wavefront.cached_frames()[-1].pool_bytes
+    log(f"animal {ANIMAL_RES}x{ANIMAL_RES} d{ANIMAL_DEPTH}: the compiled "
+        f"frame's graph pool {pool / 2**20:.1f} MiB, "
+        f"{len(wavefront.cached_frames())} graphs cached, "
+        f"{sum(f.pool_bytes for f in wavefront.cached_frames()) / 2**20:.1f}"
+        f" MiB in all (budget {wavefront.frame_budget(dev) / 2**20:.0f} MiB)")
     for k in ("cull", "stream", "packet"):
         if launches.get(k, 0) <= 0:
             raise AssertionError(f"animal never launched the {k} kernel")
@@ -1373,6 +1432,198 @@ def tools_phase(dev) -> None:
     if not sim["node"] > 0 < sim["leaf"]:
         raise AssertionError(f"sim_wide: {sim}")
     log(f"phase 28: {time.perf_counter() - t_phase:.1f} s")
+
+
+def traced(fn, reps: int, label: str) -> dict:
+    """fn() `reps` times under torch.profiler, with the launch counters
+    reset just before: {"out": the last call's result, "launches":
+    kernels.LAUNCHES just after, "seen": the port's kernel launches the
+    profiler saw run on the card by the same keys (utils/profiling
+    .port_launches), "kernels" and "device_ms": its device events a call
+    and their device ms (kernels, memsets and memcpys; the padding spins
+    and range spans left out, utils/kernel_bench.device_sums)}. A graph
+    replay adds the launches its capture recorded, so "seen" is what holds
+    the compiled frame's counts to what ran: they must be equal. The calls
+    are framed by spin kernels, and the profile is taken again, up to
+    ATTEMPTS times, where the two differ (the profiler drops an activity
+    now and then, kernel_bench.device_ms); then this raises. Only the total
+    of the other events is read: an eager call's elementwise kernels may
+    change their vectorized form, and so their names, with their operands'
+    alignment from call to call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pathtracer_tpu_torch.ops import kernels
+    from pathtracer_tpu_torch.utils.kernel_bench import (ATTEMPTS, PAD_SPINS,
+                                                         SPIN_CYCLES,
+                                                         device_sums)
+    from pathtracer_tpu_torch.utils.profiling import port_launches
+    for _ in range(ATTEMPTS):
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PAD_SPINS):
+                torch.cuda._sleep(SPIN_CYCLES)
+            for _ in range(reps):
+                out = fn()
+            for _ in range(PAD_SPINS):
+                torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        events = prof.key_averages()
+        seen = port_launches(events, DeviceType.CUDA)
+        if seen == launches:
+            by_name, counts = device_sums(events, reps, DeviceType.CUDA)
+            return {"out": out, "launches": launches, "seen": seen,
+                    "kernels": sum(counts.values()) / reps,
+                    "device_ms": sum(by_name.values())}
+        log(f"{label}: launches counted {launches}, the profiler saw "
+            f"{seen} on the card; profiling again")
+    raise AssertionError(f"{label}: launches counted {launches} differ from "
+                         f"the port's kernels the profiler saw on the card "
+                         f"{seen} ({ATTEMPTS} profiles)")
+
+
+def compiled_phase(dev) -> None:
+    """Phase 29 (the module docstring). Raises on any failure."""
+    import statistics
+
+    import torch
+
+    from pathtracer_tpu_torch import load_scene
+    from pathtracer_tpu_torch.engine import wavefront
+    from pathtracer_tpu_torch.ops import kernels
+    from pathtracer_tpu_torch.utils.kernel_bench import cuda_ms
+    from pathtracer_tpu_torch.utils.profiling import device_profile
+
+    t_phase = time.perf_counter()
+    wavefront.clear_frames()
+    for label, path, res, depth, bvh in CF_SCENES:
+        t_scene = time.perf_counter()
+        sc, st = load_scene(path, dev, bvh_impl=bvh,
+                            overrides={"RES": [res, res], "DEPTH": depth})
+        name = f"{label} {st.width}x{st.height} d{st.trace_depth}"
+        with torch.inference_mode():       # as render_chunk runs it
+            why = wavefront.eager_reason(st, dev)
+        if why is not None:
+            raise AssertionError(f"{name}: not compiled ({why})")
+        # CF_ITERS iterations, eager then compiled, counters reset before
+        kernels.reset_counts()
+        acc_e = wavefront.render_chunk_eager(
+            sc, st, wavefront.zero_accum(st, dev), 1, CF_ITERS, 0, True)
+        torch.cuda.synchronize()
+        counts_e = kernels.counts()
+        kernels.reset_counts()
+        acc_c = wavefront.render_chunk(sc, st, wavefront.zero_accum(st, dev),
+                                       1, CF_ITERS, 0, True)
+        torch.cuda.synchronize()
+        counts_c = kernels.counts()
+        frame = wavefront.cached_frames()[-1]
+        if not all(same_bits(a.cpu().numpy(), b.cpu().numpy())
+                   for a, b in zip(acc_c, acc_e)):
+            raise AssertionError(f"{name}: the compiled accum differs from "
+                                 "the eager loop's")
+        if counts_c != counts_e:
+            raise AssertionError(f"{name}: launches compiled {counts_c}, "
+                                 f"eager {counts_e}")
+        # interleaved timing from fresh iterations
+        ms = {"compiled": [], "eager": []}
+        run = {"compiled": wavefront.render_chunk,
+               "eager": wavefront.render_chunk_eager}
+        acc = {k: wavefront.zero_accum(st, dev) for k in run}
+        it = 1 + CF_ITERS
+        for _ in range(CF_ROUNDS):
+            for arm in ("compiled", "eager", "eager", "compiled"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run[arm](sc, st, acc[arm], it, CF_CHUNK, 0, True)
+                torch.cuda.synchronize()
+                ms[arm].append(1e3 * (time.perf_counter() - t0) / CF_CHUNK)
+                it += CF_CHUNK
+        t_prof = time.perf_counter()
+        prof = {arm: device_profile(sc, st, iters=1, frame=arm)
+                for arm in run}
+        t_prof = time.perf_counter() - t_prof
+        # the replays' kernels as the profiler sees them on the card: the
+        # port's kernels by name must be what the counters say a replay
+        # ran, and what the same iteration run eagerly (the warm-up's op
+        # sequence) launched; the total of the other device events is
+        # compared in the log only (elementwise names vary, `traced`)
+        n_e = n_c = dev_e = dev_c = seen_c = None
+        with torch.inference_mode():
+            if bvh is not None:
+                scratch = wavefront.zero_accum(st, dev)
+                iteration = torch.ones((), dtype=torch.int64, device=dev)
+                t_e = traced(lambda: wavefront.capturable_iteration(
+                    sc, st, scratch, iteration, 0), CF_RECORD_REPS,
+                    f"{name} eager iteration")
+                t_c = traced(frame.replay, CF_RECORD_REPS, f"{name} replays")
+                want = {k: CF_RECORD_REPS * frame.launches.get(k, 0)
+                        for k in t_c["seen"]}
+                if t_c["seen"] != want or t_c["seen"] != t_e["seen"]:
+                    raise AssertionError(
+                        f"{name}: {CF_RECORD_REPS} replays ran the port's "
+                        f"kernels {t_c['seen']} on the card, the capture "
+                        f"recorded {want}, the eager iteration ran "
+                        f"{t_e['seen']}")
+                if not any(t_c["seen"].values()):
+                    raise AssertionError(f"{name}: a replay ran none of the "
+                                         "port's kernels")
+                n_e, dev_e = t_e["kernels"], t_e["device_ms"]
+                n_c, dev_c = t_c["kernels"], t_c["device_ms"]
+                seen_c = {k: v for k, v in t_c["seen"].items() if v}
+            ev_c = cuda_ms(frame.replay, 5, warmup=1)
+        rec = {
+            "scene": name, "bvh": st.bvh_impl, "capture_s": frame.capture_s,
+            "pool_bytes": frame.pool_bytes,
+            "launches_a_frame": {k: v / CF_ITERS
+                                 for k, v in counts_c[0].items() if v},
+            "compiled_ms": ms["compiled"], "eager_ms": ms["eager"],
+            "compiled_best": min(ms["compiled"]),
+            "compiled_median": statistics.median(ms["compiled"]),
+            "eager_best": min(ms["eager"]),
+            "eager_median": statistics.median(ms["eager"]),
+            "replay_port_kernels_seen": seen_c,
+            "replay_profiled_kernels": n_c,
+            "iteration_profiled_kernels": n_e,
+            "replay_device_ms": dev_c, "iteration_device_ms": dev_e,
+            "replay_event_ms": ev_c, "profiles_s": t_prof,
+        }
+        for arm in run:
+            p = prof[arm]
+            rec[arm + "_profile"] = {k: p[k] for k in (
+                "wall_ms", "device_ms", "launches", "busy_share",
+                "host_launches")}
+        log("compiled frame " + json.dumps(rec))
+        if n_e != n_c:
+            log(f"{name}: torch.profiler sees {n_c} device kernels in a "
+                f"replay and {n_e} in the same iteration run eagerly; the "
+                f"replay's CUDA-event time is {ev_c:.3f} ms")
+        log(f"{name}: compiled {rec['compiled_best']:.2f} best / "
+            f"{rec['compiled_median']:.2f} median ms/frame, eager "
+            f"{rec['eager_best']:.2f} / {rec['eager_median']:.2f}; device "
+            f"ms a frame {prof['compiled']['device_ms']:.3f} compiled / "
+            f"{prof['eager']['device_ms']:.3f} eager, device kernels "
+            f"{prof['compiled']['launches']:.0f} / "
+            f"{prof['eager']['launches']:.0f}, host launch calls "
+            f"{prof['compiled']['host_launches']:.1f} / "
+            f"{prof['eager']['host_launches']:.1f}, busy "
+            f"{100 * prof['compiled']['busy_share']:.1f}% / "
+            f"{100 * prof['eager']['busy_share']:.1f}%; capture "
+            f"{frame.capture_s:.3f} s, graph pool "
+            f"{frame.pool_bytes / 2**20:.1f} MiB; accum bit-equal, launches "
+            "equal" + (" and seen by name on the card in replays"
+                       if bvh is not None else "")
+            + f" ({time.perf_counter() - t_scene:.1f} s)")
+        nums = rec["compiled_ms"] + rec["eager_ms"] + [
+            v for arm in run for v in rec[arm + "_profile"].values()]
+        if not all(np.isfinite(nums)) or not all(x > 0 for x in nums):
+            raise AssertionError(f"{name}: a number is not finite and "
+                                 f"positive: {rec}")
+        del sc, acc_e, acc_c, acc, frame
+        wavefront.clear_frames()
+    log(f"phase 29: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1703,15 +1954,19 @@ def main() -> int:
     iters = 4
     render(scene, settings, iterations=1, seed=0)       # warm-up
     torch.cuda.synchronize()
-    kernels.reset_counts()
     t0 = time.perf_counter()
-    img = render(scene, settings, iterations=iters, seed=0)
+    render(scene, settings, iterations=iters, seed=0)
     torch.cuda.synchronize()
     teapot_ms = 1000.0 * (time.perf_counter() - t0) / iters
-    launches = dict(kernels.LAUNCHES)
+    # the counted run: counters reset just before and read just after, and
+    # held to the port's kernels the profiler saw run on the card
+    run = traced(lambda: render(scene, settings, iterations=iters, seed=0),
+                 1, "teapot main path")
+    img, launches = run["out"], run["launches"]
     log(f"teapot {settings.width}x{settings.height} d{settings.trace_depth}"
         f" binned: {teapot_ms:.2f} ms/frame over {iters} iterations, "
-        f"launches {launches}, image mean {img.mean(axis=(0, 1)).tolist()}")
+        f"launches {launches} (seen on the card by name), image mean "
+        f"{img.mean(axis=(0, 1)).tolist()}")
     for k in ("cull", "stream", "packet"):
         if launches[k] <= 0:
             raise AssertionError(f"main path never launched the {k} kernel")
@@ -1724,11 +1979,12 @@ def main() -> int:
                               wide_tables=True,
                               overrides={"RES": [64, 64], "DEPTH": 4})
     img_k = render(small, s_set, iterations=2, seed=0)
+    # the plain versions read the host: the eager loop
     with mock.patch.object(binned, "cull", binned.cull_plain), \
             mock.patch.object(binned, "stream", binned.stream_plain), \
             mock.patch.object(bvh_packet, "packet_walk",
                               bvh_packet.packet_walk_plain):
-        img_p = render(small, s_set, iterations=2, seed=0)
+        img_p = eager_image(small, s_set, 2)
     image_agreement("teapot 64x64 d4 kernels vs plain", img_k, img_p)
 
     # -- 6. Cornell 800x800 d8 ----------------------------------------------
@@ -1759,15 +2015,18 @@ def main() -> int:
                 stack.enter_context(mock.patch.object(module, attr, value))
             render(scene, p_set, iterations=1, seed=0)       # warm-up
             torch.cuda.synchronize()
-            kernels.reset_counts()
             t0 = time.perf_counter()
-            img = render(scene, p_set, iterations=p_iters, seed=0)
+            render(scene, p_set, iterations=p_iters, seed=0)
             torch.cuda.synchronize()
             ms = 1000.0 * (time.perf_counter() - t0) / p_iters
-            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            # counted, and held to what the profiler saw on the card
+            run = traced(lambda: render(scene, p_set, iterations=p_iters,
+                                        seed=0), 1, f"teapot {label}")
+            img = run["out"]
+            launches = {k: v for k, v in run["launches"].items() if v}
         log(f"teapot {p_set.width}x{p_set.height} d{p_set.trace_depth} "
             f"{label}: {ms:.2f} ms/frame over {p_iters} iterations, "
-            f"launches {launches}")
+            f"launches {launches} (seen on the card by name)")
         for k in needs:
             if launches.get(k, 0) <= 0:
                 raise AssertionError(f"path {label} never launched the {k} "
@@ -1964,7 +2223,10 @@ def main() -> int:
     # -- 28. the mesh path's measurement tools --------------------------------
     tools_phase(dev)
 
-    # -- 29. results ----------------------------------------------------------
+    # -- 29. the compiled frame against the eager loop -----------------------
+    compiled_phase(dev)
+
+    # -- 30. results ----------------------------------------------------------
 
     log(json.dumps({"kernels": list(report.values())}))
     log(card_line())

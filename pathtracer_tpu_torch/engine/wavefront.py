@@ -1,10 +1,9 @@
 """Wavefront render engine: the port of pathtracer_tpu/engine/wavefront.py.
 
 One lane per pixel; `remaining_bounces` encodes liveness as in the reference
-(>0 live, ==0 done-not-gathered, -1 gathered, -2 dead). The JAX package
-compiles the bounce loop into one program; here it is a Python loop of eager
-torch ops. The image is a running SUM over iterations; `render` divides by
-the iteration count. Three modes, as in the JAX package:
+(>0 live, ==0 done-not-gathered, -1 gathered, -2 dead). The image is a
+running SUM over iterations; `render` divides by the iteration count. Three
+modes, as in the JAX package:
 
   masked (default)   lane == pixel; each bounce runs intersect -> shade ->
                      an elementwise gather into the image (bounce_step).
@@ -27,29 +26,66 @@ tile index into each tile's draws, and a shard's `key_salt` (its index)
 into its key, so those images differ from the masked one as the JAX
 package's do.
 
+The compiled frame. The JAX package runs `render_chunk` as one jitted
+program (pathtracer_tpu/engine/wavefront.py:382-400). Here, on a CUDA device,
+`render_chunk` runs each iteration as one replay of a captured
+torch.cuda.CUDAGraph of `capturable_iteration`: the masked iteration of all
+trace_depth bounces (the JAX package's early_exit=False scan form, whose
+image equals the early-exit loop's), its iteration number a 0-d device
+tensor that the graph advances, no host read (captured under
+torch.cuda.set_sync_debug_mode("error")). The first chunk of a
+configuration runs its first iteration eagerly (the warm-up: it builds the
+kernel library and fills the kernels' host-side caches) and then captures;
+graphs are cached by everything baked into them (`frame_key`), each with
+its own accumulator that a chunk copies `accum` into and back out of, and
+the least recently used is dropped, with a warning, once their memory
+pools together pass FRAME_MEMORY_SHARE of the card's memory. `eager_reason`
+decides from the settings, before any capture, which calls stay on the
+eager loop (`render_chunk_eager`, a Python loop of eager torch ops): the
+CPU, threefry (its key is folded on the host), the "jnp" walk (its loop
+reads the host), and the sorted and tiled modes, which run only in the
+early-exit loop (it reads a liveness flag on the host every bounce; the
+tiled mode also reads each tile's). A capture that fails for settings the
+rule admits raises; nothing falls back. `render_iteration`, the gradients
+and the persistent engine (engine/persistent.py) are eager.
+
 Each stage runs under a torch.profiler range named as the JAX package's
 scopes (engine/wavefront.py:97-145): pt_raygen (generate_paths), and in
 every mode's bounce pt_intersect, pt_shade (the draws and shade) and
 pt_gather (the image add and the gathered marker). tools/trace_stats.py
-charges a frame's device kernels to them.
+charges a frame's device kernels to them in the eager frame; a graph replay
+runs them without their host calls.
 """
 from __future__ import annotations
 
+import dataclasses
+import importlib
+import time
 import warnings
+from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..ops import rng
+from ..ops import kernels, rng
 from ..ops.bsdf import shade
 from ..ops.camera import generate_camera_rays
 from ..ops.intersect import intersect_scene
 from ..ops.scan import (SEG, sort_by_key_multisort, sort_by_key_segmented,
                         tree_map)
-from ..scene.types import RenderSettings, SceneArrays
+from ..scene.types import MESH, RenderSettings, SceneArrays
 from ..utils.vec import Vec3
+
+# the share of a card's memory that the compiled frames' graph pools may
+# hold together; past it the least recently used graph is dropped
+FRAME_MEMORY_SHARE = 0.25
+# the modules whose functions and upper-case flags a captured iteration
+# bakes in (read at capture; part of frame_key)
+BAKED_MODULES = ("engine.wavefront", "ops.rng", "ops.camera", "ops.bsdf",
+                 "ops.intersect", "ops.binned", "ops.bvh_packet", "ops.wide",
+                 "ops.brute", "ops.kernels")
 
 
 class PathState(NamedTuple):
@@ -264,6 +300,26 @@ def render_iteration(scene: SceneArrays, settings: RenderSettings,
     return accum
 
 
+def capturable_iteration(scene: SceneArrays, settings: RenderSettings,
+                         accum: Vec3, iteration: torch.Tensor, seed: int = 0,
+                         pixel_offset: int = 0, key_salt=None) -> Vec3:
+    """One masked iteration of all trace_depth bounces with no host read and
+    no host value that changes between iterations: the iteration number is
+    `iteration`, a 0-d int64 tensor on accum's device, advanced by one at
+    the end; `accum` is updated in place and returned. The fast RNG only.
+    The compiled frame captures it; its image is render_iteration's at that
+    iteration, with early exit or without."""
+    irng = rng.IterationRng(seed, iteration, pixel_map=settings.pixel_map(),
+                            pixel_offset=pixel_offset,
+                            fast=settings.fast_rng, key_salt=key_salt)
+    state = generate_paths(scene, settings, irng, n=accum.x.shape[0],
+                           pixel_offset=pixel_offset)
+    for depth in range(settings.trace_depth):
+        state = bounce_step(scene, settings, irng, depth, state, accum)
+    iteration.add_(1)
+    return accum
+
+
 @torch.inference_mode()
 def ray_survival(scene: SceneArrays, settings: RenderSettings,
                  iteration: int, seed: int = 0, n: int | None = None,
@@ -288,6 +344,208 @@ def ray_survival(scene: SceneArrays, settings: RenderSettings,
     return torch.stack(counts)
 
 
+def eager_reason(settings: RenderSettings, device,
+                 early_exit: bool = True) -> str | None:
+    """Why render_chunk runs `settings` on `device` on the eager loop, or
+    None where it runs the compiled frame: decided from the settings, the
+    device and the loop alone, before any capture. Compiled: a CUDA device,
+    the fast RNG, the masked mode (early_exit=False, or no sorted or tiled
+    mode asked for) and any --bvh but "jnp" on a mesh scene. (Gradients go
+    through render_iteration, never render_chunk, which runs under
+    inference mode.)"""
+    if torch.device(device).type != "cuda":
+        return "not a CUDA device"
+    if not settings.fast_rng:
+        return "threefry folds its keys on the host"
+    if MESH in settings.geom_types and settings.bvh_impl == "jnp":
+        return "the 'jnp' walk reads its loop condition on the host"
+    if early_exit and settings.sort_materials:
+        return ("the sorted mode runs only in the early-exit loop, which "
+                "reads a liveness flag on the host every bounce")
+    if early_exit and settings.compact:
+        return "the tiled mode reads tile liveness on the host"
+    return None
+
+
+def _signature(obj):
+    """What a captured graph bakes in of `obj`: each tensor's address,
+    shape, strides, type and device; every other value as it is."""
+    if isinstance(obj, torch.Tensor):
+        return (obj.data_ptr(), tuple(obj.shape), obj.stride(), obj.dtype,
+                obj.device)
+    if dataclasses.is_dataclass(obj):
+        return tuple(_signature(getattr(obj, f.name))
+                     for f in dataclasses.fields(obj))
+    if isinstance(obj, (tuple, list)):
+        return tuple(_signature(o) for o in obj)
+    return obj
+
+
+def _module_state() -> tuple:
+    """The functions (by identity) and the upper-case scalar flags of
+    BAKED_MODULES: a patched wrapper or flag (binned.EXPAND, a recording
+    stream, ...) gets a graph of its own."""
+    pkg = __name__.rsplit(".", 2)[0]
+    out = []
+    for name in BAKED_MODULES:
+        for k, v in vars(importlib.import_module(f"{pkg}.{name}")).items():
+            if callable(v):
+                out.append((name, k, id(v)))
+            elif k.isupper() and isinstance(v, (bool, int, float, str,
+                                                type(None))):
+                out.append((name, k, v))
+    return tuple(out)
+
+
+def frame_key(scene: SceneArrays, settings: RenderSettings, n: int,
+              seed: int, pixel_offset: int, key_salt, device) -> tuple:
+    """The compiled-frame cache key: everything a captured iteration bakes
+    in (the scene's tensors and statics, the frozen settings, the seed, the
+    pool size, the shard's first lane and key salt, the device, and the
+    modules' functions and flags)."""
+    return (_signature(scene), settings, int(n), int(seed), int(pixel_offset),
+            None if key_salt is None else int(key_salt),
+            torch.device(device), _module_state())
+
+
+class Frame:
+    """One captured iteration: the graph, the accumulator and iteration
+    tensor it reads and writes, the kernel launches and forms one replay
+    runs (kernels.add_counts), the capture's seconds, the device memory its
+    pool took, and the scene it read (held, so its tensors stay where the
+    graph reads them)."""
+
+    __slots__ = ("graph", "accum", "iteration", "launches", "forms",
+                 "capture_s", "pool_bytes", "scene")
+
+    def __init__(self, graph, accum: Vec3, iteration: torch.Tensor,
+                 launches: dict, forms: dict, capture_s: float,
+                 pool_bytes: int, scene):
+        self.graph, self.accum, self.iteration = graph, accum, iteration
+        self.launches, self.forms = launches, forms
+        self.capture_s, self.pool_bytes = capture_s, pool_bytes
+        self.scene = scene
+
+    def replay(self) -> None:
+        """One iteration: the graph's replay, and its launches counted."""
+        self.graph.replay()
+        kernels.add_counts(self.launches, self.forms)
+
+
+_FRAMES: OrderedDict = OrderedDict()
+
+
+def clear_frames() -> None:
+    """Drop every cached graph (and the memory it holds)."""
+    _FRAMES.clear()
+
+
+def cached_frames() -> list:
+    """The cached Frames, least recently used first."""
+    return list(_FRAMES.values())
+
+
+def frame_budget(device: torch.device) -> int:
+    """The bytes the graph pools of `device`'s compiled frames may hold
+    together: FRAME_MEMORY_SHARE of its memory."""
+    return int(FRAME_MEMORY_SHARE
+               * torch.cuda.get_device_properties(device).total_memory)
+
+
+def _evict(device: torch.device) -> None:
+    """Drop `device`'s least recently used graphs, all but the newest,
+    while their pools pass frame_budget; warn of each (a later chunk of
+    its settings captures again)."""
+    keys = [k for k, f in _FRAMES.items() if f.accum.x.device == device]
+    if len(keys) < 2:
+        return
+    held = sum(_FRAMES[k].pool_bytes for k in keys)
+    budget = frame_budget(device)
+    for key in keys[:-1]:
+        if held <= budget:
+            break
+        frame = _FRAMES.pop(key)
+        held -= frame.pool_bytes
+        warnings.warn(
+            f"compiled frame cache on {device}: dropped a graph of "
+            f"{frame.pool_bytes / 2**30:.2f} GiB (the pools passed "
+            f"{budget / 2**30:.2f} GiB); its settings capture again on "
+            "their next chunk", stacklevel=2)
+
+
+def capture_frame(scene: SceneArrays, settings: RenderSettings, n: int,
+                  seed: int, pixel_offset: int, key_salt, device) -> Frame:
+    """Capture capturable_iteration on `device` into a new CUDA graph under
+    set_sync_debug_mode("error"), so that a host read raises. Run one
+    iteration of these settings eagerly first (the kernel library, the
+    kernels' cached grids and shared-memory attributes). The counts the
+    capture adds are taken out again and kept for the replays; the pool's
+    size is the growth of the memory the allocator holds on `device` over
+    the capture (read inside it: entering torch.cuda.graph empties the
+    allocator's cache)."""
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    accum = zero_accum(settings, device, n=n)
+    iteration = torch.zeros((), dtype=torch.int64, device=device)
+    before = kernels.counts()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            reserved = torch.cuda.memory_reserved(device)
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                capturable_iteration(scene, settings, accum, iteration, seed,
+                                     pixel_offset, key_salt)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        launches, forms = kernels.counts_since(before)
+    finally:
+        kernels.restore_counts(before)
+    pool = max(0, torch.cuda.memory_reserved(device) - reserved)
+    return Frame(graph, accum, iteration, launches, forms,
+                 time.perf_counter() - t0, pool, scene)
+
+
+def render_chunk_compiled(scene: SceneArrays, settings: RenderSettings,
+                          accum: Vec3, start_iteration: int, n_iters: int,
+                          seed: int = 0, pixel_offset: int = 0,
+                          key_salt=None) -> Vec3:
+    """`n_iters` iterations as replays of the cached graph of these
+    settings; without one, the first iteration runs eagerly (the warm-up)
+    and the graph is captured for the rest. `accum` is copied into the
+    graph's accumulator and back."""
+    if n_iters <= 0:
+        return accum
+    dev = accum.x.device
+    key = frame_key(scene, settings, accum.x.shape[0], seed, pixel_offset,
+                    key_salt, dev)
+    with torch.cuda.device(dev):
+        frame = _FRAMES.get(key)
+        done = 0
+        if frame is None:
+            it = torch.full((), start_iteration, dtype=torch.int64,
+                            device=dev)
+            capturable_iteration(scene, settings, accum, it, seed,
+                                 pixel_offset, key_salt)
+            done = 1
+            frame = capture_frame(scene, settings, accum.x.shape[0], seed,
+                                  pixel_offset, key_salt, dev)
+            _FRAMES[key] = frame
+            _evict(dev)
+        else:
+            _FRAMES.move_to_end(key)
+        if done < n_iters:
+            for own, a in zip(frame.accum, accum):
+                own.copy_(a)
+            frame.iteration.fill_(start_iteration + done)
+            for _ in range(n_iters - done):
+                frame.replay()
+            for own, a in zip(frame.accum, accum):
+                a.copy_(own)
+    return accum
+
+
 @torch.inference_mode()
 def render_chunk(scene: SceneArrays, settings: RenderSettings,
                  accum: Vec3, start_iteration: int, n_iters: int,
@@ -295,7 +553,29 @@ def render_chunk(scene: SceneArrays, settings: RenderSettings,
                  pixel_offset: int = 0, key_salt=None) -> Vec3:
     """Run `n_iters` progressive iterations from `start_iteration` into
     `accum` (in place; a shard's block from global lane `pixel_offset`,
-    its threefry key salted with `key_salt`)."""
+    its threefry key salted with `key_salt`).
+
+    Compiled where `eager_reason` gives None (a CUDA device, the fast RNG,
+    the masked mode, any --bvh but "jnp"): one graph replay an iteration
+    (render_chunk_compiled), the image of the eager loop bit for bit.
+    Otherwise the eager loop (render_chunk_eager): the sorted and tiled
+    modes, threefry, "jnp" and the CPU."""
+    if eager_reason(settings, accum.x.device, early_exit) is None:
+        return render_chunk_compiled(scene, settings, accum, start_iteration,
+                                     n_iters, seed, pixel_offset, key_salt)
+    return render_chunk_eager(scene, settings, accum, start_iteration,
+                              n_iters, seed, early_exit, pixel_offset,
+                              key_salt)
+
+
+@torch.inference_mode()
+def render_chunk_eager(scene: SceneArrays, settings: RenderSettings,
+                       accum: Vec3, start_iteration: int, n_iters: int,
+                       seed: int = 0, early_exit: bool = True,
+                       pixel_offset: int = 0, key_salt=None) -> Vec3:
+    """render_chunk's eager loop: render_iteration `n_iters` times, every
+    stage issued from the host under its pt_* range (the frame
+    tools/trace_stats.py and utils/profiling.measure_stages split)."""
     for k in range(n_iters):
         render_iteration(scene, settings, accum, start_iteration + k,
                          seed=seed, early_exit=early_exit,

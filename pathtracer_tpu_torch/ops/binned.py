@@ -362,9 +362,12 @@ def _octcell_key(scene, mesh_roots, pid, ox, oy, oz, dx, dy, dz):
     the mesh roots; TREELET_NONE for dead lanes. Results do not depend on
     it: it orders candidates for locality only."""
     b = scene.bvh
-    roots = torch.tensor(mesh_roots, dtype=torch.long, device=ox.device)
-    lo = [c[roots].amin() for c in (b.min_x, b.min_y, b.min_z)]
-    hi = [c[roots].amax() for c in (b.max_x, b.max_y, b.max_z)]
+    # the roots by host ints: no host-to-device copy, so the compiled
+    # frame can capture it
+    lo = [torch.stack([c[r] for r in mesh_roots]).amin()
+          for c in (b.min_x, b.min_y, b.min_z)]
+    hi = [torch.stack([c[r] for r in mesh_roots]).amax()
+          for c in (b.max_x, b.max_y, b.max_z)]
 
     def q4(c, lo, hi):
         u = torch.clamp((c - lo) / torch.clamp(hi - lo, min=1e-20),

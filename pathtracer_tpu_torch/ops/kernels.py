@@ -19,7 +19,12 @@ The cull and the stream have several forms each, under one key each:
 stream. `FORMS` logs the form of each of their launches beside it:
 "cull_k1" ... "cull_k8", and "stream_default" or "stream" followed by
 "_uv", "_defer" and "_gate" for the flags a launch has on (e.g.
-"stream_defer_gate"). `reset_counts()` zeroes both.
+"stream_defer_gate"). `reset_counts()` zeroes both. A launch recorded into
+a CUDA graph counts when the graph is replayed, not while it is captured:
+the compiled frame (engine/wavefront.py) takes the counts its capture added
+(`counts`, `counts_since`), puts the counts back as they were
+(`restore_counts`), and adds them again on every replay (`add_counts`), so
+the counts say what ran.
 
 No kernel has a backward, and none needs an autograd.Function: as the
 Pallas kernels have no AD rule in the JAX package, the mesh intersectors
@@ -218,6 +223,37 @@ def reset_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     FORMS.clear()
+
+
+def counts() -> tuple[dict, dict]:
+    """A copy of (LAUNCHES, FORMS)."""
+    return dict(LAUNCHES), dict(FORMS)
+
+
+def counts_since(before: tuple[dict, dict]) -> tuple[dict, dict]:
+    """The launches and forms counted since `before` (a `counts()`), each
+    that rose."""
+    launches, forms = before
+    return ({k: v - launches.get(k, 0) for k, v in LAUNCHES.items()
+             if v != launches.get(k, 0)},
+            {k: v - forms.get(k, 0) for k, v in FORMS.items()
+             if v != forms.get(k, 0)})
+
+
+def restore_counts(saved: tuple[dict, dict]) -> None:
+    """Put LAUNCHES and FORMS back to `saved` (a `counts()`), in place."""
+    launches, forms = saved
+    LAUNCHES.update({k: launches.get(k, 0) for k in LAUNCHES})
+    FORMS.clear()
+    FORMS.update(forms)
+
+
+def add_counts(launches: dict, forms: dict) -> None:
+    """Count `launches` and `forms` once more (a graph replay's)."""
+    for k, v in launches.items():
+        LAUNCHES[k] += v
+    for k, v in forms.items():
+        FORMS[k] = FORMS.get(k, 0) + v
 
 
 def hit_outputs(n: int, device: torch.device):

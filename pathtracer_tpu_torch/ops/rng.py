@@ -35,6 +35,7 @@ import torch
 
 M32 = 0xFFFFFFFF
 GOLDEN = 0x9E3779B9
+KEYED_DEPTHS = 64   # depth keys a tensor iteration makes at once (-2 on)
 
 
 def _u32(x):
@@ -110,9 +111,24 @@ def decision_state(seed: int, sample, depth,
     int; `sample` and `depth` are host ints (the wavefront engine: the
     whole pool at one iteration and bounce) or [n] integer tensors (the
     persistent engine's per-lane schedule), negatives wrapped to uint32
-    either way. Raygen uses depth -1 (AA) and -2 (DoF)."""
-    h = _pcg((_u32(seed) * GOLDEN + _u32(sample)) & M32)
-    h = _pcg(h ^ _mul32(_u32(depth), 0x85EBCA6B))
+    either way. Raygen uses depth -1 (AA) and -2 (DoF). A 0-d tensor
+    `sample` (the compiled frame's iteration, engine/wavefront.py) gives the
+    host int's bits."""
+    return _pixel_mix(_depth_mix(_sample_key(seed, sample), depth), pixel)
+
+
+def _sample_key(seed: int, sample):
+    """decision_state's key of (seed, sample)."""
+    return _pcg((((_u32(seed) * GOLDEN) & M32) + _u32(sample)) & M32)
+
+
+def _depth_mix(h, depth):
+    """The key `h` mixed with a depth (an int or a tensor of depths)."""
+    return _pcg(h ^ _mul32(_u32(depth), 0x85EBCA6B))
+
+
+def _pixel_mix(h, pixel: torch.Tensor) -> torch.Tensor:
+    """The per-pixel states of the depth key `h`."""
     p = pixel.to(torch.int64) & M32
     return _pcg(h ^ ((p * 0xC2B2AE35) & M32))
 
@@ -254,15 +270,34 @@ class IterationRng:
     fold_in(key(seed), iteration), then fold_in(., key_salt) where given
     (the shard index); a draw at `depth` folds in the depth and then the
     draw's `salt` where given (the tiled mode's tile index), and the lanes
-    take the rows of one [n, m] block in lane order."""
+    take the rows of one [n, m] block in lane order.
 
-    __slots__ = ("fast", "seed", "iteration", "pixel_map", "offset", "key")
+    On the fast path `iteration` may be a 0-d integer tensor on the draws'
+    device: the draws then read it on the device, so a captured CUDA graph
+    that advances it draws each replay's own numbers (the compiled frame,
+    engine/wavefront.py), bit for bit the int's. The keys of depths -2 ..
+    KEYED_DEPTHS - 3 are then made at once, in a few 0-d and [KEYED_DEPTHS]
+    ops, and each draw takes its depth's. Threefry folds the iteration into
+    its key on the host and takes an int only."""
 
-    def __init__(self, seed: int, iteration: int, pixel_map=None,
+    __slots__ = ("fast", "seed", "iteration", "pixel_map", "offset", "key",
+                 "keyed")
+
+    def __init__(self, seed: int, iteration, pixel_map=None,
                  pixel_offset: int = 0, fast: bool = True, key_salt=None):
         self.fast = bool(fast)
         self.seed = int(seed)
-        self.iteration = int(iteration)
+        if isinstance(iteration, torch.Tensor):
+            if not self.fast or iteration.dim() != 0:
+                raise ValueError("a tensor iteration must be 0-d, on the "
+                                 "fast path: threefry folds an int")
+            self.iteration = iteration
+            self.keyed = _depth_mix(
+                _sample_key(self.seed, iteration),
+                torch.arange(-2, KEYED_DEPTHS - 2, device=iteration.device))
+        else:
+            self.iteration = int(iteration)
+            self.keyed = None
         self.pixel_map = pixel_map if pixel_map is not None else (
             lambda lane: lane)
         self.offset = int(pixel_offset)
@@ -275,6 +310,8 @@ class IterationRng:
     def _state(self, depth: int, lane: torch.Tensor) -> torch.Tensor:
         if self.offset:
             lane = lane + self.offset
+        if self.keyed is not None and -2 <= depth < KEYED_DEPTHS - 2:
+            return _pixel_mix(self.keyed[depth + 2], self.pixel_map(lane))
         return decision_state(self.seed, self.iteration, depth,
                               self.pixel_map(lane))
 

@@ -8,7 +8,10 @@ tools/bench_suite.py): the reference's measurement matrix (BASELINE.md),
         [--headline LINE.json ...] [--out BENCH_torch.md]
 
 Each row loads its scene outside the timed window, renders one warm-up
-chunk and REPS timed chunks (`bench_wavefront`, `bench_persistent`),
+chunk and REPS timed chunks (`bench_wavefront`, `bench_persistent`;
+the wavefront rows through render_chunk, on the card the compiled frame
+where engine/wavefront.py eager_reason allows, one graph replay an
+iteration, whose graph the warm-up chunk captures),
 then, also outside the timed window, one `utils/profiling.device_profile`
 pass of PROFILE_ITERS frames: device ms, device kernels and busy share a
 frame. `ops.kernels.LAUNCHES` is reset just before the row and read just

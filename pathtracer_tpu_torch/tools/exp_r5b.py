@@ -15,8 +15,10 @@ rows-per-treelet bound:
   oct     CAND_KEY "octcell"    p2oct    both
   tre24, tre32, tre96, p2tre24  scene.tre_rows 24, 32, 96 (and PASSES 2)
 A round renders `--chunk` iterations of every arm (render_chunk, from each
-arm's next iteration) and prints each arm's ms/frame: the wall time of the
-chunk up to a synchronize, over the chunk. Round 0 is the warm-up.
+arm's next iteration; on the card the compiled frame, a graph an arm, since
+the flags are part of engine/wavefront.py frame_key) and prints each arm's
+ms/frame: the wall time of the chunk up to a synchronize, over the chunk.
+Round 0 is the warm-up (and the captures).
 After the rounds every arm has rendered the same iterations, so its image
 must equal base's bit for bit, except a `tre*` arm below the scene's own
 treelet rows, which then skips rows. Left out, with no counterpart in the

@@ -1,11 +1,12 @@
 """The multi-process render on the cards of one host, one card a rank,
 against the single-process render, and its scaling.
 
-    python -m pathtracer_tpu_torch.tools.multicard [scene.json]
+    python -m pathtracer_tpu_torch.tools.multicard [scene.json] [--spp N]
 
 For each world size N of 1, 2, 4, ... up to the cards torch sees, it
 starts N processes of tools/multihost_worker (rank r on cuda:r, NCCL, a
-free localhost port, SPP iterations and one albedo step, `--fit`), each
+free localhost port, `--spp` iterations (default SPP) and one albedo
+step, `--fit`), each
 with a time limit. The ranks' images must equal each other and the image
 this process renders with `render` on cuda:0, bit for bit; the ranks' new
 albedos must equal each other bit for bit and one rank's within rtol 1e-5.
@@ -14,10 +15,13 @@ rank's ms a frame, rays/s (the image's pixels over that time), the
 efficiency against linear scaling from one rank, the collectives' ms and
 the peak memory a rank, with the card's name and power limit. Exits
 non-zero on a failure. The scene defaults to teapot, at its checked-in
-size.
+size. A rank's ms a frame is its timed render_distributed over the
+iterations, the gather of the image included: more iterations spread that
+fixed cost thinner.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import socket
@@ -39,14 +43,14 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_world(n: int, scene: str, out: str) -> list:
+def run_world(n: int, scene: str, out: str, spp: int = SPP) -> list:
     """One NCCL rank a card, cards 0..n-1; each rank's JSON report."""
     init = f"tcp://127.0.0.1:{_free_port()}"
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     procs = [subprocess.Popen(
         [sys.executable, "-m", "pathtracer_tpu_torch.tools.multihost_worker",
-         scene, out, "--spp", str(SPP), "--fit", "--device", f"cuda:{r}",
+         scene, out, "--spp", str(spp), "--fit", "--device", f"cuda:{r}",
          "--backend", "nccl", "--init-method", init, "--world-size", str(n),
          "--rank", str(r)],
         cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -79,8 +83,13 @@ def main(argv=None) -> int:
     from ..scene.fixtures import scene_path
     from ..utils.kernel_bench import card_line
 
-    argv = sys.argv[1:] if argv is None else argv
-    scene = argv[0] if argv else scene_path("teapot")
+    ap = argparse.ArgumentParser(
+        prog="python -m pathtracer_tpu_torch.tools.multicard")
+    ap.add_argument("scene", nargs="?", default=None)
+    ap.add_argument("--spp", type=int, default=SPP)
+    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
+    scene = args.scene or scene_path("teapot")
+    spp = args.spp
     cards = torch.cuda.device_count()
     if cards == 0:
         raise RuntimeError("multicard: torch sees no CUDA device")
@@ -91,7 +100,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         for n in worlds:
             out = os.path.join(tmp, f"w{n}")
-            reports = run_world(n, scene, out)
+            reports = run_world(n, scene, out, spp)
             for r in reports:
                 print(json.dumps(r), flush=True)
             ranks_imgs = [np.load(f"{out}.{r}.npy") for r in range(n)]
@@ -117,13 +126,13 @@ def main(argv=None) -> int:
                 "peak_bytes": max(r["peak_bytes"] for r in reports),
                 "launches_rank0": reports[0]["launches"]}
     sc, settings = load_scene(scene, "cuda:0")
-    ref = render(sc, settings, iterations=SPP, seed=0)
+    ref = render(sc, settings, iterations=spp, seed=0)
     for n, img in zip(worlds, imgs):
         if not _same_bits(img, ref):
             raise AssertionError(f"{n} ranks: the image differs from "
                                  "render")
     print(json.dumps({"multicard": results, "backend": "nccl",
-                      "scene": scene, "spp": SPP, "card": card,
+                      "scene": scene, "spp": spp, "card": card,
                       "cards": cards}), flush=True)
     print(f"multicard: every world size bit-equal to render; {card}")
     return 0

@@ -9,12 +9,15 @@ The engine runs each stage under a torch.profiler range named as the JAX
 package's scopes: pt_raygen, pt_intersect, pt_shade, pt_gather
 (engine/wavefront.py), and inside pt_intersect the binned intersector's
 pt_mi_sort, pt_mi_cull, pt_mi_stream, pt_mi_fb (ops/binned.py). After one
-warm-up frame, `--frames` frames of render_chunk run under
-torch.profiler. Each device kernel (and memcpy / memset) is matched to the
-host call that launched it and charged to the first stage of STAGES whose
-range was open then, the JAX tool's rule (xplane_stats.py:42-43): the
-pt_mi_* sub-stages come first, so a sort inside pt_intersect is charged to
-pt_mi_sort, and nothing is charged twice. Per stage and frame it prints
+warm-up frame, `--frames` frames of the eager loop
+(engine/wavefront.render_chunk_eager) run under torch.profiler: the
+compiled frame that render_chunk runs on the card is one graph launch an
+iteration, whose kernels have no host call to charge. Each device kernel
+(and memcpy / memset) is matched to the host call that launched it and
+charged to the first stage of STAGES whose range was open then, the JAX
+tool's rule (xplane_stats.py:42-43): the pt_mi_* sub-stages come first,
+so a sort inside pt_intersect is charged to pt_mi_sort, and nothing is
+charged twice. Per stage and frame it prints
 device ms, its share of the traced device total, host ms (the wall time
 inside the stage's ranges, less the stages nested in them) and device
 launches, and with `--top K` the stage's K largest kernels; kernels
@@ -27,9 +30,10 @@ XPlane files and HLO metadata, which the JAX tool parses, are TPU formats;
 this tool reads torch.profiler's own events. On the CPU (`--device cpu`)
 there are no device kernels: only the host columns are printed.
 
-`--range-cost ROUNDS` instead times untraced frames with the ranges and
-without them (`range_cost`), interleaved in one process: what the ranges
-cost a frame that nobody traces.
+`--range-cost ROUNDS` instead times untraced eager frames with the ranges
+and without them (`range_cost`), interleaved in one process: what the
+ranges cost an eager frame that nobody traces (a graph replay runs no
+range).
 """
 from __future__ import annotations
 
@@ -122,20 +126,20 @@ def stage_split(events) -> dict:
 
 
 def trace_frames(scene, settings, frames: int, seed: int = 0):
-    """One warm-up frame, then `frames` frames of render_chunk under
+    """One warm-up frame, then `frames` frames of render_chunk_eager under
     torch.profiler: (prof.events(), traced wall ms a frame)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from ..engine.wavefront import render_chunk, zero_accum
+    from ..engine.wavefront import render_chunk_eager, zero_accum
     dev = scene.device
     acts = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
     accum = zero_accum(settings, dev)
-    render_chunk(scene, settings, accum, 1, 1, seed, True)
+    render_chunk_eager(scene, settings, accum, 1, 1, seed, True)
     _sync(dev)
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        render_chunk(scene, settings, accum, 2, frames, seed, True)
+        render_chunk_eager(scene, settings, accum, 2, frames, seed, True)
         _sync(dev)
         wall = 1e3 * (time.perf_counter() - t0) / frames
     return prof.events(), wall
@@ -208,10 +212,10 @@ def ranges_off():
 def range_cost(scene, settings, chunk: int = 10, rounds: int = 4,
                seed: int = 0, out=print) -> dict:
     """ms/frame with the ranges (on) and without them (off), untraced:
-    `rounds` rounds of render_chunk of `chunk` iterations in the order on,
-    off, off, on, each up to a synchronize, after one warm-up chunk of
-    each. Returns {"on": [ms/frame], "off": [...]}."""
-    from ..engine.wavefront import render_chunk, zero_accum
+    `rounds` rounds of render_chunk_eager of `chunk` iterations in the
+    order on, off, off, on, each up to a synchronize, after one warm-up
+    chunk of each. Returns {"on": [ms/frame], "off": [...]}."""
+    from ..engine.wavefront import render_chunk_eager, zero_accum
     dev = scene.device
     accum = zero_accum(settings, dev)
 
@@ -219,7 +223,8 @@ def range_cost(scene, settings, chunk: int = 10, rounds: int = 4,
         _sync(dev)
         t0 = time.perf_counter()
         with (ranges_off() if arm == "off" else contextlib.nullcontext()):
-            render_chunk(scene, settings, accum, it, chunk, seed, True)
+            render_chunk_eager(scene, settings, accum, it, chunk, seed,
+                               True)
         _sync(dev)
         return 1e3 * (time.perf_counter() - t0) / chunk
 

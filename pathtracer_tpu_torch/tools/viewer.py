@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import argparse
 import base64
-import dataclasses
 import os
 import select
 import sys
@@ -245,14 +244,13 @@ def main(argv=None) -> None:
     home_look_at = look_at.copy()
 
     def rebuild_camera():
-        """The camera tensors from (zoom, theta, phi, look_at)."""
-        nonlocal scene
+        """The camera tensors from (zoom, theta, phi, look_at), written in
+        place: the compiled frame's graph reads them where they are, so a
+        move needs no new capture."""
         new_cam = orbit_camera(cam_dict, zoom, theta, phi, look_at)
-        fields = {k: torch.as_tensor(new_cam[k], dtype=torch.float32,
-                                     device=device)
-                  for k in ("position", "view", "up", "right")}
-        scene = dataclasses.replace(
-            scene, camera=dataclasses.replace(scene.camera, **fields))
+        for k in ("position", "view", "up", "right"):
+            getattr(scene.camera, k).copy_(torch.as_tensor(
+                new_cam[k], dtype=torch.float32))
 
     accum = zero_accum(settings, device)
     iteration = 0

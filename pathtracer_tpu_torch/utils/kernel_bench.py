@@ -70,6 +70,25 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
+def device_sums(events, reps: int, cuda) -> tuple[dict, dict]:
+    """Per name, the device ms a call and the count of `events` (profiler
+    key averages) on device type `cuda`: every kernel, memset and memcpy
+    but the padding spins and the profiler ranges' own device-side spans
+    (utils/profiling.is_range_span, the rule of device_profile), which
+    cover kernels already counted."""
+    from pathtracer_tpu_torch.utils.profiling import is_range_span
+    by_name, counts = {}, {}
+    for evt in events:
+        if (evt.device_type == cuda and evt.self_device_time_total
+                and "spin_kernel" not in evt.key
+                and not is_range_span(evt)):
+            by_name[evt.key] = (by_name.get(evt.key, 0.0)
+                                + evt.self_device_time_total / 1000.0
+                                / reps)
+            counts[evt.key] = counts.get(evt.key, 0) + evt.count
+    return by_name, counts
+
+
 def device_ms(fn, reps: int, warmup: int = 2) -> tuple[float, dict]:
     """torch.profiler's device time of fn() per call, over `reps` calls:
     (ms, {device kernel or memset name: ms per call}).
@@ -82,7 +101,7 @@ def device_ms(fn, reps: int, warmup: int = 2) -> tuple[float, dict]:
     every other kernel or memset must be recorded a whole multiple of
     `reps` times, and a profile that fails this is taken again, up to
     ATTEMPTS times, after which this raises rather than report a time with
-    calls missing."""
+    calls missing. Range spans are left out (`device_sums`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -98,15 +117,8 @@ def device_ms(fn, reps: int, warmup: int = 2) -> tuple[float, dict]:
             for _ in range(PAD_SPINS):
                 torch.cuda._sleep(SPIN_CYCLES)
             torch.cuda.synchronize()
-        by_name, counts = {}, {}
-        for evt in prof.key_averages():
-            if (evt.device_type == DeviceType.CUDA
-                    and evt.self_device_time_total
-                    and "spin_kernel" not in evt.key):
-                by_name[evt.key] = (by_name.get(evt.key, 0.0)
-                                    + evt.self_device_time_total / 1000.0
-                                    / reps)
-                counts[evt.key] = counts.get(evt.key, 0) + evt.count
+        by_name, counts = device_sums(prof.key_averages(), reps,
+                                      DeviceType.CUDA)
         lost = {k: n for k, n in counts.items() if n % reps}
         if not lost:
             return sum(by_name.values()), by_name

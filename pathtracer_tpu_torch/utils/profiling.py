@@ -4,25 +4,31 @@ pathtracer_tpu/utils/profiling.py):
     python -m pathtracer_tpu_torch.utils.profiling scenes/teapot.json \
         [--iters 3] [--res R] [--depth D] [--json out.json] [--device cuda] \
         [--bvh wide] [--fallback packet|wide] \
-        [--mode masked|sorted|tiled|persistent] [--tile 16000]
+        [--mode masked|sorted|tiled|persistent] [--tile 16000] \
+        [--frame compiled|eager]
 
-Three measurements of whole iterations (`render_iteration` with early exit,
-as `render` runs it, in the wavefront mode `--mode`; or, for
+Three measurements of whole iterations (`render_chunk` with early exit, as
+`render` runs it, in the wavefront mode `--mode`; or, for
 `--mode persistent`, the persistent engine over as many samples), each after
 one warm-up iteration:
 
   * frame_ms: plain wall time per iteration, nothing traced;
   * device_profile: torch.profiler over the iterations. Device kernels are
     grouped by kind (`kernel_kind`); per frame it gives each kind's device
-    time and launches, the traced wall time, and the device's busy share
+    time and launches, the traced wall time, the device's busy share
     (device kernel time over wall time: the engine issues everything on one
-    stream, so kernels barely overlap). The device-side spans of the
+    stream, so kernels barely overlap) and the host's launch calls
+    (`is_host_launch`: a graph replay is one). The device-side spans of the
     engine's and the binned intersector's profiler ranges are no kernels
     and are left out (`is_range_span`);
   * stage_times: each stage function wrapped in a timer that synchronizes
     the device before and after it, so a stage's time includes the host
     time of issuing its ops. Stages nest (a sort inside the mesh pipeline
     inside intersect), so their times are inclusive and do not add up.
+    Always the eager frame: a graph replay calls no stage function.
+The first two time the frame `--frame` names: "compiled" (the default,
+render_chunk: a graph replay an iteration where engine/wavefront.py
+eager_reason allows, what users run) or "eager" (render_chunk_eager).
 
 It runs on the CUDA device unless `--device cpu` asks for the CPU, where
 there is no device to trace: the device fields are then None.
@@ -30,7 +36,7 @@ there is no device to trace: the device fields are then None.
 `measure_stages` is the other contract, the JAX package's (printed by
 `python -m pathtracer_tpu_torch.tools.perfstats`): raygen, intersect, shade
 and gather each called on its own on one pool, synchronized, beside the
-eager frame.
+eager frame (render_chunk_eager).
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import re
 import time
 from unittest import mock
 
@@ -49,6 +56,7 @@ from .device import resolve_device
 from .vec import Vec3
 
 MODES = ("masked", "sorted", "tiled", "persistent")
+FRAMES = ("compiled", "eager")
 
 # (module, function, stage name), outermost first; the persistent engine's
 # step has its own references to the stage functions
@@ -99,6 +107,13 @@ RANGES = frozenset(("pt_raygen", "pt_intersect", "pt_shade", "pt_gather",
                     "pt_mi_sort", "pt_mi_cull", "pt_mi_stream", "pt_mi_fb"))
 
 
+def is_host_launch(evt) -> bool:
+    """A host call of the CUDA driver or runtime that issues device work:
+    a kernel launch, a graph launch, a memset or a memcpy."""
+    return evt.key.startswith("cu") and any(
+        w in evt.key for w in ("Launch", "Memset", "Memcpy"))
+
+
 def is_range_span(evt) -> bool:
     """A range's own device-side span (the GPU user annotation that a
     record_function range gets when the CPU and the card are traced
@@ -117,6 +132,35 @@ def kernel_kind(name: str) -> str:
     return "elementwise/other"
 
 
+# the device kernel that each counted launch of kernels.LAUNCHES runs once,
+# by its name (the packet and wide walks' compactions and the deferring
+# stream's support sort run beside it)
+PORT_KERNELS = (("cull_kernel", "cull"), ("stream_kernel", "stream"),
+                ("packet_kernel_walk", "packet"),
+                ("wide_push_kernel", "wide_push"),
+                ("wide_mask_kernel", "wide_mask"),
+                ("brute_kernel", "brute"), ("scan_kernel", "scan"))
+_PORT_NAME = re.compile(r"(?<![A-Za-z0-9_])(" + "|".join(
+    name for name, _ in PORT_KERNELS) + r")(?![A-Za-z0-9_])")
+
+
+def port_launches(events, cuda) -> dict:
+    """The port's kernel launches that the profiler saw run on the card:
+    the count of `events` (profiler key averages) on device type `cuda`
+    whose name holds a PORT_KERNELS name, by its kernels.LAUNCHES key (every
+    key, 0 where none ran). A graph replay's kernels are seen by their own
+    names, so this reads what a compiled frame ran."""
+    keys = dict(PORT_KERNELS)
+    out = dict.fromkeys(keys.values(), 0)
+    for evt in events:
+        if evt.device_type != cuda or is_range_span(evt):
+            continue
+        m = _PORT_NAME.search(evt.key)
+        if m is not None:
+            out[keys[m.group(1)]] += evt.count
+    return out
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -132,34 +176,38 @@ def mode_settings(settings, mode: str, tile: int = 16000):
 
 
 def _iterations(scene, settings, iters: int, seed: int, start: int,
-                mode: str = "masked") -> None:
-    """Iterations start .. start + iters - 1 (persistent: those samples)."""
+                mode: str = "masked", frame: str = "compiled") -> None:
+    """Iterations start .. start + iters - 1 (persistent: those samples),
+    of the compiled frame (render_chunk) or the eager one."""
+    if frame not in FRAMES:
+        raise ValueError(f"frame {frame!r}: expected one of {FRAMES}")
     if mode == "persistent":
         state = persistent.fresh_lanes(settings, scene.device,
                                        start_spp=start - 1)
         persistent.render_persistent_chunk(scene, settings, state,
                                            start - 1 + iters, seed)
     else:
+        chunk = (wavefront.render_chunk if frame == "compiled"
+                 else wavefront.render_chunk_eager)
         accum = wavefront.zero_accum(settings, scene.device)
-        wavefront.render_chunk(scene, settings, accum, start, iters, seed,
-                               True)
+        chunk(scene, settings, accum, start, iters, seed, True)
     _sync(scene.device)
 
 
 def frame_ms(scene, settings, iters: int = 3, seed: int = 0,
-             mode: str = "masked") -> float:
+             mode: str = "masked", frame: str = "compiled") -> float:
     """Wall milliseconds per iteration, after one warm-up iteration."""
-    _iterations(scene, settings, 1, seed, 1, mode)
+    _iterations(scene, settings, 1, seed, 1, mode, frame)
     t0 = time.perf_counter()
-    _iterations(scene, settings, iters, seed, 2, mode)
+    _iterations(scene, settings, iters, seed, 2, mode, frame)
     return 1000.0 * (time.perf_counter() - t0) / iters
 
 
 def device_profile(scene, settings, iters: int = 3, seed: int = 0,
-                   mode: str = "masked") -> dict:
+                   mode: str = "masked", frame: str = "compiled") -> dict:
     """torch.profiler over `iters` iterations: per frame, the traced wall
     ms, and on a CUDA device the device kernel ms, launches and busy share,
-    in all and by kind."""
+    in all and by kind, and the host's launch calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -167,18 +215,23 @@ def device_profile(scene, settings, iters: int = 3, seed: int = 0,
     on_gpu = dev.type == "cuda"
     activities = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if on_gpu else [])
-    _iterations(scene, settings, 1, seed, 1, mode)
+    _iterations(scene, settings, 1, seed, 1, mode, frame)
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        _iterations(scene, settings, iters, seed, 2, mode)
+        _iterations(scene, settings, iters, seed, 2, mode, frame)
         wall_ms = 1000.0 * (time.perf_counter() - t0) / iters
     out = {"wall_ms": wall_ms, "device_ms": None, "launches": None,
-           "busy_share": None, "by_kind": None}
+           "busy_share": None, "by_kind": None, "host_launches": None}
     if not on_gpu:
         return out
     by_kind = {}
+    host_launches = 0
     for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA or is_range_span(evt):
+        if evt.device_type != DeviceType.CUDA:
+            if is_host_launch(evt):
+                host_launches += evt.count
+            continue
+        if is_range_span(evt):
             continue
         kind = kernel_kind(evt.key)
         ms, n = by_kind.get(kind, (0.0, 0))
@@ -188,6 +241,7 @@ def device_profile(scene, settings, iters: int = 3, seed: int = 0,
     out.update(device_ms=device_ms,
                launches=sum(n for _, n in by_kind.values()),
                busy_share=device_ms / wall_ms,
+               host_launches=host_launches / iters,
                by_kind={k: {"ms": ms, "launches": n} for k, (ms, n) in
                         sorted(by_kind.items(), key=lambda kv: -kv[1][0])})
     return out
@@ -195,7 +249,8 @@ def device_profile(scene, settings, iters: int = 3, seed: int = 0,
 
 def stage_times(scene, settings, iters: int = 3, seed: int = 0,
                 mode: str = "masked") -> dict:
-    """Per frame, each stage's synchronized wall ms and number of calls."""
+    """Per frame, each stage's synchronized wall ms and number of calls, in
+    the eager frame (a graph replay calls no stage)."""
     dev = scene.device
     acc = {}
 
@@ -210,13 +265,13 @@ def stage_times(scene, settings, iters: int = 3, seed: int = 0,
             return res
         return wrapper
 
-    _iterations(scene, settings, 1, seed, 1, mode)
+    _iterations(scene, settings, 1, seed, 1, mode, "eager")
     with contextlib.ExitStack() as stack:
         for mod, attr, name in STAGES:
             stack.enter_context(mock.patch.object(
                 mod, attr, timed(getattr(mod, attr), name)))
         t0 = time.perf_counter()
-        _iterations(scene, settings, iters, seed, 2, mode)
+        _iterations(scene, settings, iters, seed, 2, mode, "eager")
         wall = 1000.0 * (time.perf_counter() - t0) / iters
     stages = {name: {"ms": acc[name][0] / iters, "calls": acc[name][1] / iters}
               for _, _, name in STAGES if name in acc}
@@ -226,12 +281,12 @@ def stage_times(scene, settings, iters: int = 3, seed: int = 0,
 def report(scene_file: str, device, iters: int = 3, seed: int = 0,
            overrides: dict | None = None, bvh: str | None = None,
            mode: str = "masked", tile: int = 16000,
-           fallback: str | None = None) -> dict:
+           fallback: str | None = None, frame: str = "compiled") -> dict:
     """All three measurements of one scene on `device`, through the mesh
     intersector `bvh` (None: the loader's pick), with the binned
     intersector's exact finish `fallback` ("packet" or "wide"; None:
     binned.FALLBACK_IMPL), in engine mode `mode` (`tile`: the tiled mode's
-    compact_tile)."""
+    compact_tile); frame_ms and device_profile of the frame `frame`."""
     from ..scene.loader import load_scene
     fallback = fallback or binned.FALLBACK_IMPL
     scene, settings = load_scene(scene_file, device, overrides=overrides,
@@ -244,10 +299,10 @@ def report(scene_file: str, device, iters: int = 3, seed: int = 0,
         return {
             "scene": scene_file, "device": str(scene.device),
             "bvh": settings.bvh_impl, "fallback": fallback, "mode": mode,
-            "res": [settings.width, settings.height],
+            "frame": frame, "res": [settings.width, settings.height],
             "depth": settings.trace_depth, "iters": iters,
-            "frame_ms": frame_ms(*args),
-            "device_profile": device_profile(*args),
+            "frame_ms": frame_ms(*args, frame),
+            "device_profile": device_profile(*args, frame),
             "stage_times": stage_times(*args),
         }
 
@@ -305,7 +360,7 @@ def measure_stages(scene, settings, seed: int = 0,
     """Raygen, intersect, shade and gather each timed on its own over
     `iters` calls on the raygen pool of one iteration (the varied eps and
     iteration keep the calls' inputs distinct), and one eager frame
-    (`render_chunk` of one iteration) timed over `iters` frames."""
+    (`render_chunk_eager` of one iteration) timed over `iters` frames."""
     dev = scene.device
     pmap = settings.pixel_map()
 
@@ -344,9 +399,9 @@ def measure_stages(scene, settings, seed: int = 0,
                     img.z + torch.where(done, color.z, 0.0))
 
     frame_ms = _time(
-        lambda k: wavefront.render_chunk(scene, settings,
-                                         wavefront.zero_accum(settings, dev),
-                                         k + 1, 1, seed, True), dev, iters)
+        lambda k: wavefront.render_chunk_eager(
+            scene, settings, wavefront.zero_accum(settings, dev), k + 1, 1,
+            seed, True), dev, iters)
     return StageStats(
         raygen_ms=_time(lambda k: f_raygen(k + 2), dev, iters),
         intersect_ms=_time(lambda k: f_isect(k * 1e-6), dev, iters),
@@ -375,7 +430,7 @@ def ray_survival_report(scene, settings, iteration: int = 10,
 def format_report(rep: dict) -> str:
     lines = [f"{rep['scene']} {rep['res'][0]}x{rep['res'][1]} "
              f"d{rep['depth']} bvh {rep['bvh']} (fallback "
-             f"{rep['fallback']}) {rep['mode']} on "
+             f"{rep['fallback']}) {rep['mode']} {rep['frame']} frame on "
              f"{rep['device']}, "
              f"{rep['iters']} iterations:"
              f" untraced {rep['frame_ms']:.2f} ms/frame"]
@@ -384,7 +439,8 @@ def format_report(rep: dict) -> str:
     if prof["device_ms"] is not None:
         lines.append(f"  device kernels {prof['device_ms']:.2f} ms/frame, "
                      f"{prof['launches']:.0f} launches/frame, busy "
-                     f"{100.0 * prof['busy_share']:.1f}%")
+                     f"{100.0 * prof['busy_share']:.1f}%, "
+                     f"{prof['host_launches']:.0f} host launch calls/frame")
         for kind, v in prof["by_kind"].items():
             lines.append(f"    {kind:<20}{v['ms']:>10.3f} ms"
                          f"{v['launches']:>10.0f} launches")
@@ -416,6 +472,9 @@ def main(argv=None) -> None:
                          "binned.FALLBACK_IMPL)")
     ap.add_argument("--mode", choices=MODES, default="masked",
                     help="engine mode (default masked)")
+    ap.add_argument("--frame", choices=FRAMES, default="compiled",
+                    help="frame of the untraced and traced timings "
+                         "(default compiled; the stages always eager)")
     ap.add_argument("--tile", type=int, default=16000,
                     help="compact_tile of --mode tiled (must divide the "
                          "pool; default 16000, for 800x800)")
@@ -429,7 +488,8 @@ def main(argv=None) -> None:
     reps = []
     for s in args.scenes:
         rep = report(s, device, args.iters, args.seed, overrides or None,
-                     args.bvh, args.mode, args.tile, args.fallback)
+                     args.bvh, args.mode, args.tile, args.fallback,
+                     args.frame)
         print(format_report(rep), flush=True)
         reps.append(rep)
     if args.json:

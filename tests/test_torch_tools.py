@@ -61,17 +61,18 @@ def test_stage_rows_match_jax_table():
 
 def test_stages_time_distinct_inputs(cornell_small, monkeypatch):
     """Each stage is called iters + 1 times, on distinct inputs (eps and
-    iteration vary with the call), and the frame runs render_chunk for one
-    iteration at a time."""
+    iteration vary with the call), and the frame runs the eager loop
+    (render_chunk_eager, not the compiled frame) for one iteration at a
+    time."""
     scene, settings = cornell_small
     seen = []
-    real = profiling.wavefront.render_chunk
+    real = profiling.wavefront.render_chunk_eager
 
     def spy(scene_, settings_, accum, start, n_iters, *a, **k):
         seen.append((start, n_iters))
         return real(scene_, settings_, accum, start, n_iters, *a, **k)
 
-    monkeypatch.setattr(profiling.wavefront, "render_chunk", spy)
+    monkeypatch.setattr(profiling.wavefront, "render_chunk_eager", spy)
     measure_stages(scene, settings, iters=2)
     assert seen == [(1, 1), (2, 1), (3, 1)]
 
