@@ -49,12 +49,18 @@ tiled mode also reads each tile's). A capture that fails for settings the
 rule admits raises; nothing falls back. `render_iteration`, the gradients
 and the persistent engine (engine/persistent.py) are eager.
 
-Each stage runs under a torch.profiler range named as the JAX package's
+Each stage runs as a stage of the span recorder (utils/spans.py), a
+torch.profiler range while a profiler records, named as the JAX package's
 scopes (engine/wavefront.py:97-145): pt_raygen (generate_paths), and in
 every mode's bounce pt_intersect, pt_shade (the draws and shade) and
 pt_gather (the image add and the gathered marker). tools/trace_stats.py
-charges a frame's device kernels to them in the eager frame; a graph replay
-runs them without their host calls.
+charges the eager frame's device kernels to them. A graph replay runs no
+host code, so no range: a frame's timed graph, the same iteration
+captured with timed events at the boundaries of its stages, replays in
+place of the plain one about once a second, and the next call of the
+compiled frame reads it (utils/spans.py). Each call is the host span
+pt_frame, with pt_frame.key, .warm, .capture, .copy and .launch inside it;
+lanes_to_image is the span pt_display.fetch.
 """
 from __future__ import annotations
 
@@ -67,7 +73,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..ops import kernels, rng
 from ..ops.bsdf import shade
@@ -76,6 +81,7 @@ from ..ops.intersect import intersect_scene
 from ..ops.scan import (SEG, sort_by_key_multisort, sort_by_key_segmented,
                         tree_map)
 from ..scene.types import MESH, RenderSettings, SceneArrays
+from ..utils import spans
 from ..utils.vec import Vec3
 
 # the share of a card's memory that the compiled frames' graph pools may
@@ -85,7 +91,7 @@ FRAME_MEMORY_SHARE = 0.25
 # bakes in (read at capture; part of frame_key)
 BAKED_MODULES = ("engine.wavefront", "ops.rng", "ops.camera", "ops.bsdf",
                  "ops.intersect", "ops.binned", "ops.bvh_packet", "ops.wide",
-                 "ops.brute", "ops.kernels")
+                 "ops.brute", "ops.kernels", "utils.spans")
 
 
 class PathState(NamedTuple):
@@ -107,7 +113,7 @@ def generate_paths(scene: SceneArrays, settings: RenderSettings,
     if n is None:
         n = settings.pixel_count
     dev = scene.device
-    with record_function("pt_raygen"):
+    with spans.stage("pt_raygen"):
         lanes = torch.arange(n, dtype=torch.int64, device=dev)
         jitter = irng.normals(-1, lanes, 2) if settings.jitter else None
         dof_u = irng.uniforms(-2, lanes, 2) if settings.dof else None
@@ -133,13 +139,13 @@ def bounce_step(scene: SceneArrays, settings: RenderSettings,
     """One bounce, masked mode: intersect -> shade -> gather
     (pathtrace.cu:752-894 body). Adds the lanes that just finished to
     `image` in place and returns the new path state."""
-    with record_function("pt_intersect"):
+    with spans.stage("pt_intersect"):
         t, normal, mat_id = intersect_scene(
             scene, settings.geom_types, state.origin, state.direction,
             bvh_impl=settings.bvh_impl, active=state.remaining_bounces > 0)
     origin, direction, color, rb = _shade(scene, settings, irng, depth,
                                           state, t, normal, mat_id)
-    with record_function("pt_gather"):
+    with spans.stage("pt_gather"):
         rb = _gather(image, color, rb)
     return PathState(origin, direction, color, rb, state.pixel)
 
@@ -149,7 +155,7 @@ def _shade(scene, settings, irng, depth, state, t, normal, mat_id,
     """The bounce's draws and shade under the pt_shade range: the next
     (origin, direction, color, remaining_bounces). `salt`: the tiled
     mode's tile index."""
-    with record_function("pt_shade"):
+    with spans.stage("pt_shade"):
         u = irng.uniforms(depth, state.pixel, 5 if settings.rr_start else 4,
                           salt=salt)
         return shade(
@@ -186,7 +192,7 @@ def bounce_step_sorted(scene: SceneArrays, settings: RenderSettings,
     across bounces with their pixel ids; lanes that finish are marked
     gathered (-1) without an image add, and render_iteration gathers them
     after the loop. `image` is untouched."""
-    with record_function("pt_intersect"):
+    with spans.stage("pt_intersect"):
         t, normal, mat_id = intersect_scene(
             scene, settings.geom_types, state.origin, state.direction,
             bvh_impl=settings.bvh_impl)
@@ -195,7 +201,7 @@ def bounce_step_sorted(scene: SceneArrays, settings: RenderSettings,
         keys, (state, t, normal, mat_id))
     origin, direction, color, rb = _shade(scene, settings, irng, depth,
                                           state, t, normal, mat_id)
-    with record_function("pt_gather"):
+    with spans.stage("pt_gather"):
         rb = torch.where(rb == 0, -1, rb)
     return PathState(origin, direction, color, rb, state.pixel)
 
@@ -220,13 +226,13 @@ def bounce_step_tiled(scene: SceneArrays, settings: RenderSettings,
         if not live[k]:
             out.append(s)
             continue
-        with record_function("pt_intersect"):
+        with spans.stage("pt_intersect"):
             t, normal, mat_id = intersect_scene(
                 scene, settings.geom_types, s.origin, s.direction,
                 bvh_impl=settings.bvh_impl)
         origin, direction, color, rb = _shade(scene, settings, irng, depth,
                                               s, t, normal, mat_id, salt=k)
-        with record_function("pt_gather"):
+        with spans.stage("pt_gather"):
             rb = _gather(Vec3(*(c[sl] for c in image)), color, rb)
         out.append(PathState(origin, direction, color, rb, s.pixel))
     return tree_map(lambda *parts: torch.cat(parts), *out)
@@ -412,23 +418,31 @@ class Frame:
     """One captured iteration: the graph, the accumulator and iteration
     tensor it reads and writes, the kernel launches and forms one replay
     runs (kernels.add_counts), the capture's seconds, the device memory its
-    pool took, and the scene it read (held, so its tensors stay where the
-    graph reads them)."""
+    pool took, the scene it read (held, so its tensors stay where the
+    graph reads them), and its timed graph: the same iteration with timed
+    events at its stages' boundaries (spans.GraphEvents `events`), sharing
+    the graph's pool (both None with the recorder off)."""
 
     __slots__ = ("graph", "accum", "iteration", "launches", "forms",
-                 "capture_s", "pool_bytes", "scene")
+                 "capture_s", "pool_bytes", "scene", "timed", "events")
 
     def __init__(self, graph, accum: Vec3, iteration: torch.Tensor,
                  launches: dict, forms: dict, capture_s: float,
-                 pool_bytes: int, scene):
+                 pool_bytes: int, scene, timed=None, events=None):
         self.graph, self.accum, self.iteration = graph, accum, iteration
         self.launches, self.forms = launches, forms
         self.capture_s, self.pool_bytes = capture_s, pool_bytes
-        self.scene = scene
+        self.scene, self.timed, self.events = scene, timed, events
 
-    def replay(self) -> None:
-        """One iteration: the graph's replay, and its launches counted."""
-        self.graph.replay()
+    def replay(self, timed: bool = False) -> None:
+        """One iteration: the graph's replay, or with `timed` the timed
+        graph's (where there is one; its events are then the ones the
+        recorder reads next), and its launches counted."""
+        if timed and self.timed is not None:
+            self.timed.replay()
+            spans.replayed(self.events)
+        else:
+            self.graph.replay()
         kernels.add_counts(self.launches, self.forms)
 
 
@@ -436,7 +450,9 @@ _FRAMES: OrderedDict = OrderedDict()
 
 
 def clear_frames() -> None:
-    """Drop every cached graph (and the memory it holds)."""
+    """Drop every cached graph (and the memory it holds), after taking the
+    last timed replay's stage times if it has finished."""
+    spans.read_replay()
     _FRAMES.clear()
 
 
@@ -466,6 +482,7 @@ def _evict(device: torch.device) -> None:
             break
         frame = _FRAMES.pop(key)
         held -= frame.pool_bytes
+        spans.count("evictions")
         warnings.warn(
             f"compiled frame cache on {device}: dropped a graph of "
             f"{frame.pool_bytes / 2**30:.2f} GiB (the pools passed "
@@ -473,38 +490,56 @@ def _evict(device: torch.device) -> None:
             "their next chunk", stacklevel=2)
 
 
+def _captured_iteration(scene, settings, accum, iteration, seed,
+                        pixel_offset, key_salt, events) -> None:
+    """capturable_iteration inside a capture, under
+    set_sync_debug_mode("error"), so that a host read raises; its top
+    stages record their boundaries into `events` (None: none)."""
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with spans.capturing(events):
+            capturable_iteration(scene, settings, accum, iteration, seed,
+                                 pixel_offset, key_salt)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
 def capture_frame(scene: SceneArrays, settings: RenderSettings, n: int,
                   seed: int, pixel_offset: int, key_salt, device) -> Frame:
-    """Capture capturable_iteration on `device` into a new CUDA graph under
-    set_sync_debug_mode("error"), so that a host read raises. Run one
-    iteration of these settings eagerly first (the kernel library, the
-    kernels' cached grids and shared-memory attributes). The counts the
-    capture adds are taken out again and kept for the replays; the pool's
-    size is the growth of the memory the allocator holds on `device` over
-    the capture (read inside it: entering torch.cuda.graph empties the
+    """Capture capturable_iteration on `device` into a new CUDA graph and,
+    with the recorder on, into its timed graph in the same pool (the two
+    replay in turn, never at once). Run one iteration of these settings
+    eagerly first (the kernel library, the kernels' cached grids and
+    shared-memory attributes). The counts a capture adds are taken out
+    again and one capture's kept for the replays; the pool's size is the
+    growth of the memory the allocator holds on `device` over the captures
+    (read inside the first: entering torch.cuda.graph empties the
     allocator's cache)."""
     t0 = time.perf_counter()
     device = torch.device(device)
     accum = zero_accum(settings, device, n=n)
     iteration = torch.zeros((), dtype=torch.int64, device=device)
+    args = (scene, settings, accum, iteration, seed, pixel_offset, key_salt)
+    events = spans.graph_events()
+    timed = None
     before = kernels.counts()
     graph = torch.cuda.CUDAGraph()
     try:
         with torch.cuda.graph(graph):
             reserved = torch.cuda.memory_reserved(device)
-            mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                capturable_iteration(scene, settings, accum, iteration, seed,
-                                     pixel_offset, key_salt)
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
+            _captured_iteration(*args, None)
         launches, forms = kernels.counts_since(before)
+        if events is not None:
+            timed = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(timed, pool=graph.pool()):
+                _captured_iteration(*args, events)
     finally:
         kernels.restore_counts(before)
     pool = max(0, torch.cuda.memory_reserved(device) - reserved)
+    spans.count("captures")
     return Frame(graph, accum, iteration, launches, forms,
-                 time.perf_counter() - t0, pool, scene)
+                 time.perf_counter() - t0, pool, scene, timed, events)
 
 
 def render_chunk_compiled(scene: SceneArrays, settings: RenderSettings,
@@ -514,35 +549,47 @@ def render_chunk_compiled(scene: SceneArrays, settings: RenderSettings,
     """`n_iters` iterations as replays of the cached graph of these
     settings; without one, the first iteration runs eagerly (the warm-up)
     and the graph is captured for the rest. `accum` is copied into the
-    graph's accumulator and back."""
+    graph's accumulator and back. The call is the span pt_frame; it first
+    takes the last timed replay's stage times if that replay has finished,
+    and its last iteration replays the timed graph where one is due
+    (spans.timed_due: at most once in spans.TIMED_EVERY_S)."""
     if n_iters <= 0:
         return accum
     dev = accum.x.device
-    key = frame_key(scene, settings, accum.x.shape[0], seed, pixel_offset,
-                    key_salt, dev)
-    with torch.cuda.device(dev):
-        frame = _FRAMES.get(key)
-        done = 0
-        if frame is None:
-            it = torch.full((), start_iteration, dtype=torch.int64,
-                            device=dev)
-            capturable_iteration(scene, settings, accum, it, seed,
-                                 pixel_offset, key_salt)
-            done = 1
-            frame = capture_frame(scene, settings, accum.x.shape[0], seed,
-                                  pixel_offset, key_salt, dev)
-            _FRAMES[key] = frame
-            _evict(dev)
-        else:
-            _FRAMES.move_to_end(key)
-        if done < n_iters:
-            for own, a in zip(frame.accum, accum):
-                own.copy_(a)
-            frame.iteration.fill_(start_iteration + done)
-            for _ in range(n_iters - done):
-                frame.replay()
-            for own, a in zip(frame.accum, accum):
-                a.copy_(own)
+    with spans.span(spans.FRAME, call=True):
+        spans.read_replay()
+        with spans.span("pt_frame.key"):
+            key = frame_key(scene, settings, accum.x.shape[0], seed,
+                            pixel_offset, key_salt, dev)
+        with torch.cuda.device(dev):
+            frame = _FRAMES.get(key)
+            done = 0
+            if frame is None:
+                with spans.span("pt_frame.warm"):
+                    it = torch.full((), start_iteration, dtype=torch.int64,
+                                    device=dev)
+                    capturable_iteration(scene, settings, accum, it, seed,
+                                         pixel_offset, key_salt)
+                done = 1
+                with spans.span("pt_frame.capture"):
+                    frame = capture_frame(scene, settings, accum.x.shape[0],
+                                          seed, pixel_offset, key_salt, dev)
+                _FRAMES[key] = frame
+                _evict(dev)
+            else:
+                _FRAMES.move_to_end(key)
+            if done < n_iters:
+                with spans.span("pt_frame.copy"):
+                    for own, a in zip(frame.accum, accum):
+                        own.copy_(a)
+                    frame.iteration.fill_(start_iteration + done)
+                with spans.span("pt_frame.launch"):
+                    for _ in range(n_iters - done - 1):
+                        frame.replay()
+                    frame.replay(timed=spans.timed_due())
+                with spans.span("pt_frame.copy"):
+                    for own, a in zip(frame.accum, accum):
+                        a.copy_(own)
     return accum
 
 
@@ -619,9 +666,11 @@ def render(scene: SceneArrays, settings: RenderSettings,
     return lanes_to_image(avg, settings)
 
 
+@spans.span("pt_display.fetch")
 def lanes_to_image(avg: Vec3, settings: RenderSettings) -> np.ndarray:
     """Lane-space Vec3 -> [H, W, 3] numpy image (undoes the tile-major lane
-    order and the shard interleave, by scatter)."""
+    order and the shard interleave, by scatter); the span
+    pt_display.fetch."""
     arr = avg.to_array().cpu().numpy()
     if settings.tile is None and not settings.shard_interleave:
         return arr.reshape(settings.height, settings.width, 3)

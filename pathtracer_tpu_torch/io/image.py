@@ -13,9 +13,13 @@ import zlib
 
 import numpy as np
 
+from ..utils import spans
 
+
+@spans.span("pt_display.u8")
 def to_uint8(img: np.ndarray) -> np.ndarray:
-    """HDR float [H,W,3] -> clamped 8-bit (image.cpp:28-38)."""
+    """HDR float [H,W,3] -> clamped 8-bit (image.cpp:28-38); the span
+    pt_display.u8."""
     return (np.clip(np.asarray(img), 0.0, 1.0) * 255.0).astype(np.uint8)
 
 

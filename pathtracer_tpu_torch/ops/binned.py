@@ -63,17 +63,18 @@ have no counterpart in the kernels' designs here.
 
 Each kernel wrapper (`cull`, `stream`) launches its CUDA kernel for CUDA
 tensors and runs the plain PyTorch version beside it for CPU tensors. The
-sort, cull, stream and fallback stages run under torch.profiler ranges named
-as the JAX package's scopes (pt_mi_sort, pt_mi_cull, pt_mi_stream,
-pt_mi_fb): they show in a torch.profiler trace, and as NVTX ranges under
+sort, cull, stream and fallback stages run as the span recorder's stages
+(utils/spans.py), torch.profiler ranges named as the JAX package's scopes
+(pt_mi_sort, pt_mi_cull, pt_mi_stream, pt_mi_fb): they show in a
+torch.profiler trace, and as NVTX ranges under
 torch.autograd.profiler.emit_nvtx.
 """
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from ..scene.types import CHUNK_GATE_ROWS, TREELET_NONE, TRIS_PER_ROW
+from ..utils import spans
 from ..utils.vec import Vec3
 from . import kernels
 from .bvh_packet import (closest_hit, finish_hits, mesh_intersect_packet,
@@ -171,7 +172,7 @@ def cull(treelet_f, treelet_super, ox, oy, oz, dx, dy, dz,
     """(id int32, t0 f32) planes per lane, [n] for k = 1 and [k, n] for
     k > 1: csrc/cull.cu on CUDA tensors, the plain version on CPU
     tensors."""
-    with record_function("pt_mi_cull"):
+    with spans.stage("pt_mi_cull"):
         if ox.device.type == "cpu":
             return cull_plain(treelet_f, treelet_super, ox, oy, oz, dx, dy,
                               dz, bound, pt0, pid, live, k)
@@ -295,7 +296,7 @@ def stream(treelet_i, tris_packed, max_rows: int,
            min_support: int = 1, treelet_chunk=None):
     """stream_plain's outputs: csrc/stream.cu on CUDA tensors, the plain
     version on CPU tensors."""
-    with record_function("pt_mi_stream"):
+    with spans.stage("pt_mi_stream"):
         if ox.device.type == "cpu":
             return stream_plain(treelet_i, tris_packed, max_rows, ox, oy,
                                 oz, dx, dy, dz, bound, tid, uv, min_support,
@@ -345,7 +346,7 @@ def _seg_sort(key, *arrays):
     distribution and rank-aligned rows hold nearly the same ids. With
     BIN_CONTIGUOUS the segments are contiguous runs of CONTIGUOUS lanes
     (binned.py:704-709)."""
-    with record_function("pt_mi_sort"):
+    with spans.stage("pt_mi_sort"):
         if BIN_CONTIGUOUS:
             view, dim = (-1, min(CONTIGUOUS, key.shape[0])), 1
         else:
@@ -669,7 +670,7 @@ def _packet_fallback(scene, mesh_roots, origin, direction, active, bound,
     """Exact finish for lanes with unenumerated wants, under the tightened
     bound (binned.py:1158-1192): one packet walk per mesh, or with
     fallback_impl="wide" one 8-wide walk over every mesh."""
-    with record_function("pt_mi_fb"):
+    with spans.stage("pt_mi_fb"):
         if fallback_impl == "wide":
             from .wide import mesh_intersect_wide
             return mesh_intersect_wide(scene, origin, direction,

@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import spans
 from ..utils.math import PI, build_transformation_matrix, inverse_transpose, normalize
 from . import obj as obj_loader
 from .bvh import align_leaves, build_bvh
@@ -125,6 +126,7 @@ def orbit_camera(cam: dict, zoom: float, theta: float, phi: float,
     return out
 
 
+@spans.span("pt_setup.scene")
 def load_scene(path: str, device, orbit: bool = True,
                overrides: Optional[dict] = None, brute_tables: bool = False,
                wide_tables: bool = False, bvh_impl: Optional[str] = None,
@@ -145,7 +147,8 @@ def load_scene(path: str, device, orbit: bool = True,
     builds the per-triangle SoA table, which only that walk reads.
     `max_leaf` overrides every mesh's fat-leaf size and `tre_rows` the
     scene's rows-per-treelet bound (scene.tre_rows), as the JAX loader's
-    arguments do (the measurement tools' treelet-size sweeps)."""
+    arguments do (the measurement tools' treelet-size sweeps). The call
+    is the span pt_setup.scene."""
     if bvh_impl == "brute":
         brute_tables = True
     if bvh_impl in ("wide", "wide_nosort"):

@@ -12,7 +12,10 @@ pt_mi_sort, pt_mi_cull, pt_mi_stream, pt_mi_fb (ops/binned.py). After one
 warm-up frame, `--frames` frames of the eager loop
 (engine/wavefront.render_chunk_eager) run under torch.profiler: the
 compiled frame that render_chunk runs on the card is one graph launch an
-iteration, whose kernels have no host call to charge. Each device kernel
+iteration, whose kernels have no host call to charge (its split by stage
+is the span recorder's, from events inside a timed graph: utils/spans.py,
+printed by `python -m pathtracer_tpu_torch.utils.profiling`). The ranges
+and STAGES are the recorder's (utils/spans.py stage). Each device kernel
 (and memcpy / memset) is matched to the host call that launched it and
 charged to the first stage of STAGES whose range was open then, the JAX
 tool's rule (xplane_stats.py:42-43): the pt_mi_* sub-stages come first,
@@ -30,10 +33,12 @@ XPlane files and HLO metadata, which the JAX tool parses, are TPU formats;
 this tool reads torch.profiler's own events. On the CPU (`--device cpu`)
 there are no device kernels: only the host columns are printed.
 
-`--range-cost ROUNDS` instead times untraced eager frames with the ranges
-and without them (`range_cost`), interleaved in one process: what the
-ranges cost an eager frame that nobody traces (a graph replay runs no
-range).
+`--range-cost ROUNDS [--chunk N] [--display]` instead times untraced
+chunks of render_chunk (the compiled frame on the card) with the span
+recorder on and off (`range_cost`), interleaved in one process: what its
+host spans and timed replays cost a frame that nobody traces (untraced,
+a span opens no profiler range); with `--display`, a unit also makes the
+uint8 image (the interactive frame, with `--chunk 1`).
 """
 from __future__ import annotations
 
@@ -43,12 +48,12 @@ import statistics
 import time
 from unittest import mock
 
+from ..utils import spans
 from ..utils.device import resolve_device
 from ..utils.profiling import _sync, is_range_span
 
 # the pt_mi_* sub-stages first: a kernel is charged to the first found
-STAGES = ("pt_mi_sort", "pt_mi_cull", "pt_mi_stream", "pt_mi_fb",
-          "pt_raygen", "pt_intersect", "pt_shade", "pt_gather")
+STAGES = spans.STAGES
 OTHER, UNLINKED = "(unattributed)", "(unlinked)"
 
 
@@ -197,49 +202,52 @@ def table(res: dict, top: int = 0) -> str:
     return "\n".join(lines)
 
 
-@contextlib.contextmanager
 def ranges_off():
-    """The block runs with the engine's and the binned intersector's
-    profiler ranges replaced by a no-op (the cost of the ranges)."""
-    from ..engine import wavefront
-    from ..ops import binned
-    null = lambda name: contextlib.nullcontext()
-    with mock.patch.object(wavefront, "record_function", null), \
-            mock.patch.object(binned, "record_function", null):
-        yield
+    """The block runs with the span recorder off (spans.ENABLED): no
+    profiler range, host span or timed graph (the cost of them)."""
+    return mock.patch.object(spans, "ENABLED", False)
 
 
 def range_cost(scene, settings, chunk: int = 10, rounds: int = 4,
-               seed: int = 0, out=print) -> dict:
-    """ms/frame with the ranges (on) and without them (off), untraced:
-    `rounds` rounds of render_chunk_eager of `chunk` iterations in the
-    order on, off, off, on, each up to a synchronize, after one warm-up
-    chunk of each. Returns {"on": [ms/frame], "off": [...]}."""
-    from ..engine.wavefront import render_chunk_eager, zero_accum
+               seed: int = 0, out=print, display: bool = False) -> dict:
+    """ms a unit with the recorder on (on) and off (off), untraced: a unit
+    is render_chunk of `chunk` iterations (the compiled frame on the card,
+    whose frame has a timed graph or none) up to a
+    synchronize, and with `display` the averaged image to uint8 after it
+    (lanes_to_image and to_uint8, the interactive frame). `rounds` rounds
+    in the order on, off, off, on, after one warm-up unit of each. Returns
+    {"on": [ms], "off": [...]}; prints each arm's median and 95th
+    percentile."""
+    from ..engine.wavefront import lanes_to_image, render_chunk, zero_accum
+    from ..io.image import to_uint8
     dev = scene.device
     accum = zero_accum(settings, dev)
 
-    def frame_ms(arm, it):
+    def unit_ms(arm, it):
         _sync(dev)
         t0 = time.perf_counter()
         with (ranges_off() if arm == "off" else contextlib.nullcontext()):
-            render_chunk_eager(scene, settings, accum, it, chunk, seed,
-                               True)
-        _sync(dev)
-        return 1e3 * (time.perf_counter() - t0) / chunk
+            render_chunk(scene, settings, accum, it, chunk, seed)
+            _sync(dev)
+            if display:
+                to_uint8(lanes_to_image(accum * (1.0 / (it + chunk - 1)),
+                                        settings))
+        return 1e3 * (time.perf_counter() - t0)
 
     res = {"on": [], "off": []}
     it = 1
     for arm in ("on", "off"):
-        frame_ms(arm, it)
+        unit_ms(arm, it)
         it += chunk
     for _ in range(rounds):
         for arm in ("on", "off", "off", "on"):
-            res[arm].append(frame_ms(arm, it))
+            res[arm].append(unit_ms(arm, it))
             it += chunk
     for arm, ms in res.items():
-        out(f"ranges {arm:3s}: median {statistics.median(ms):9.3f} ms/frame"
-            f" of {[round(x, 3) for x in ms]}")
+        p95 = statistics.quantiles(ms, n=20)[-1] if len(ms) > 1 else ms[0]
+        out(f"recorder {arm:3s}: median {statistics.median(ms):9.3f} "
+            f"p95 {p95:9.3f} ms a unit of {chunk} iteration(s)"
+            f"{' + display' if display else ''}, {len(ms)} units")
     return res
 
 
@@ -258,8 +266,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--iters", type=int, default=20,
                     help="calls a stage of the isolated table")
     ap.add_argument("--range-cost", type=int, default=0, metavar="ROUNDS",
-                    help="instead, time ROUNDS rounds of chunks with and "
-                         "without the ranges (range_cost)")
+                    help="instead, time ROUNDS rounds of chunks with the "
+                         "span recorder on and off (range_cost)")
+    ap.add_argument("--chunk", type=int, default=10,
+                    help="iterations a unit of --range-cost")
+    ap.add_argument("--display", action="store_true",
+                    help="a --range-cost unit also makes the uint8 image")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda)")
     args = ap.parse_args(argv)
@@ -278,8 +290,9 @@ def main(argv=None) -> dict:
     print(f"scene: {path} {settings.width}x{settings.height} "
           f"d{settings.trace_depth} bvh={settings.bvh_impl}", flush=True)
     if args.range_cost:
-        return range_cost(scene, settings, rounds=args.range_cost,
-                          out=lambda s: print(s, flush=True))
+        return range_cost(scene, settings, args.chunk, args.range_cost,
+                          out=lambda s: print(s, flush=True),
+                          display=args.display)
     res = split_frames(scene, settings, args.frames)
     print(table(res, args.top), flush=True)
     print()

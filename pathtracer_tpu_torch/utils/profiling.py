@@ -25,10 +25,20 @@ one warm-up iteration:
     the device before and after it, so a stage's time includes the host
     time of issuing its ops. Stages nest (a sort inside the mesh pipeline
     inside intersect), so their times are inclusive and do not add up.
-    Always the eager frame: a graph replay calls no stage function.
+    Always the eager frame: a graph replay calls no stage function (the
+    compiled frame's split is graph_stages, below).
 The first two time the frame `--frame` names: "compiled" (the default,
 render_chunk: a graph replay an iteration where engine/wavefront.py
 eager_reason allows, what users run) or "eager" (render_chunk_eager).
+Beside device_profile, the compiled frame's own split by stage
+(`graph_stages`): the span recorder's device ms an iteration of pt_raygen,
+pt_intersect, pt_shade and pt_gather, timed by events inside each
+frame's timed graph (utils/spans.py), from the untraced timed replays of
+these measurements;
+the host ms of the compiled frame's calls, split into its spans
+(`frame_host`: pt_frame.key, .copy, .launch and the call's self time);
+and the graphs captured, dropped past the cache's budget and cached, with
+their pools' bytes (`graph_cache`).
 
 It runs on the CUDA device unless `--device cpu` asks for the CPU, where
 there is no device to trace: the device fields are then None.
@@ -45,6 +55,7 @@ import contextlib
 import dataclasses
 import json
 import re
+import statistics
 import time
 from unittest import mock
 
@@ -52,6 +63,7 @@ import torch
 
 from ..engine import persistent, wavefront
 from ..ops import binned, brute, bsdf, bvh_packet, intersect, rng, wide
+from . import spans
 from .device import resolve_device
 from .vec import Vec3
 
@@ -102,9 +114,9 @@ KINDS = (
 )
 
 
-# the port's torch.profiler ranges (engine/wavefront.py, ops/binned.py)
-RANGES = frozenset(("pt_raygen", "pt_intersect", "pt_shade", "pt_gather",
-                    "pt_mi_sort", "pt_mi_cull", "pt_mi_stream", "pt_mi_fb"))
+# the port's stage ranges (utils/spans.py; engine/wavefront.py,
+# ops/binned.py)
+RANGES = spans.RANGES
 
 
 def is_host_launch(evt) -> bool:
@@ -278,6 +290,54 @@ def stage_times(scene, settings, iters: int = 3, seed: int = 0,
     return {"wall_ms": wall, "stages": stages}
 
 
+def graph_stages() -> dict | None:
+    """{top stage: median device ms an iteration} of the compiled frame's
+    untraced timed replays that the span recorder read (utils/spans.py),
+    or None where it read none (the eager frame, the CPU, the recorder
+    off)."""
+    spans.read_replay()
+    dev = spans.snapshot()["device_ms"]
+    out = {s: spans.median(dev.get(s)) for s in spans.TOP}
+    return {s: ms for s, ms in out.items() if ms is not None} or None
+
+
+def frame_host() -> dict | None:
+    """Median host ms of the compiled frame's untraced calls that captured
+    nothing: the whole call (pt_frame), each span inside it summed over the
+    call (pt_frame.key, .copy, .launch) and the call's self time (reading
+    the last timed replay's events, and Python); None where there were
+    none."""
+    recs = spans.snapshot()["spans"]
+    captured = {r[5] for r in recs if r[1] == "pt_frame.capture"}
+    calls = {r[0]: r for r in recs if r[1] == spans.FRAME and not r[6]
+             and r[5] not in captured}
+    if not calls:
+        return None
+    own = spans.self_seconds(recs)
+    inside = {}
+    for sid, name, start, end, parent, *_ in recs:
+        if parent in calls:
+            per_call = inside.setdefault(name, dict.fromkeys(calls, 0.0))
+            per_call[parent] += end - start
+    ms = lambda xs: 1000.0 * statistics.median(xs)
+    return {spans.FRAME: ms([r[3] - r[2] for r in calls.values()]),
+            **{name: ms(list(v.values())) for name, v in inside.items()},
+            "self": ms([own[sid] for sid in calls])}
+
+
+def graph_cache() -> dict:
+    """The compiled frames' cache: the frames captured and those dropped
+    past its budget (the span recorder's counters captures and
+    evictions), and the frames cached with their graph pools' bytes
+    (Frame.pool_bytes)."""
+    counters = spans.snapshot()["counters"]
+    frames = wavefront.cached_frames()
+    return {"captures": counters.get("captures", 0),
+            "evictions": counters.get("evictions", 0),
+            "cached": len(frames),
+            "pool_bytes": sum(f.pool_bytes for f in frames)}
+
+
 def report(scene_file: str, device, iters: int = 3, seed: int = 0,
            overrides: dict | None = None, bvh: str | None = None,
            mode: str = "masked", tile: int = 16000,
@@ -286,7 +346,9 @@ def report(scene_file: str, device, iters: int = 3, seed: int = 0,
     intersector `bvh` (None: the loader's pick), with the binned
     intersector's exact finish `fallback` ("packet" or "wide"; None:
     binned.FALLBACK_IMPL), in engine mode `mode` (`tile`: the tiled mode's
-    compact_tile); frame_ms and device_profile of the frame `frame`."""
+    compact_tile); frame_ms and device_profile of the frame `frame`, and
+    graph_stages, frame_host and graph_cache of their calls (the span
+    recorder starts afresh)."""
     from ..scene.loader import load_scene
     fallback = fallback or binned.FALLBACK_IMPL
     scene, settings = load_scene(scene_file, device, overrides=overrides,
@@ -294,6 +356,7 @@ def report(scene_file: str, device, iters: int = 3, seed: int = 0,
                                  wide_tables=fallback == "wide")
     settings = mode_settings(settings, mode, tile)
     args = (scene, settings, iters, seed, mode)
+    spans.reset()
     with torch.inference_mode(), mock.patch.object(binned, "FALLBACK_IMPL",
                                                    fallback):
         return {
@@ -303,6 +366,9 @@ def report(scene_file: str, device, iters: int = 3, seed: int = 0,
             "depth": settings.trace_depth, "iters": iters,
             "frame_ms": frame_ms(*args, frame),
             "device_profile": device_profile(*args, frame),
+            "graph_stages": graph_stages(),
+            "frame_host": frame_host(),
+            "graphs": graph_cache(),
             "stage_times": stage_times(*args),
         }
 
@@ -444,6 +510,27 @@ def format_report(rep: dict) -> str:
         for kind, v in prof["by_kind"].items():
             lines.append(f"    {kind:<20}{v['ms']:>10.3f} ms"
                          f"{v['launches']:>10.0f} launches")
+    graph = rep.get("graph_stages")
+    if graph is None:
+        lines.append("  in-graph stages: none read (the eager frame, the "
+                     "CPU or the recorder off)")
+    else:
+        lines.append(f"  in-graph stages (compiled frame, untraced, device "
+                     f"ms/frame): sum {sum(graph.values()):.3f}")
+        for name, ms in graph.items():
+            lines.append(f"    {name:<20}{ms:>10.3f} ms")
+    host = rep.get("frame_host")
+    if host is not None:
+        lines.append("  host ms of a compiled frame's call (untraced "
+                     "medians):")
+        for name, ms in host.items():
+            lines.append(f"    {name:<20}{ms:>10.3f} ms")
+    graphs = rep.get("graphs")
+    if graphs is not None:
+        lines.append(f"  graphs: {graphs['captures']} captured, "
+                     f"{graphs['evictions']} dropped past the budget; "
+                     f"{graphs['cached']} cached, "
+                     f"{graphs['pool_bytes'] / 2**20:.1f} MiB of pool")
     st = rep["stage_times"]
     lines.append(f"  synchronized stages (wall {st['wall_ms']:.2f} "
                  "ms/frame, inclusive):")

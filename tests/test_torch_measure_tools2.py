@@ -36,7 +36,7 @@ from pathtracer_tpu_torch.tools import (bench_sorts, diag_bins, exp_r5,
                                         exp_r5b, profile_binned,
                                         profile_binned2, sim_wide,
                                         sweep_mesh, trace_stats, union_model)
-from pathtracer_tpu_torch.utils import profiling
+from pathtracer_tpu_torch.utils import profiling, spans
 
 torch.set_num_threads(2)
 
@@ -218,21 +218,23 @@ def test_range_cost_runs_both_arms():
     res = trace_stats.range_cost(scene, settings, chunk=1, rounds=1,
                                  out=lines.append)
     assert len(res["on"]) == len(res["off"]) == 2 and len(lines) == 2
-    assert wavefront.record_function is torch.profiler.record_function
+    assert spans.ENABLED is True
 
 
 def test_profiler_ranges_are_the_stages():
-    """Every range the engine and the binned pipeline open is a stage of
-    trace_stats and a range that utils/profiling leaves out of device time;
-    a device-side span of one is no kernel there."""
+    """Every stage range the engine and the binned pipeline open (through
+    the span recorder's `stage`) is a stage of trace_stats and a range that
+    utils/profiling leaves out of device time, all from one list
+    (spans.STAGES); a device-side span of one is no kernel there."""
     names = set()
     for mod in (wavefront, binned):
         tree = ast.parse(open(mod.__file__).read())
         for node in ast.walk(tree):
             if (isinstance(node, ast.Call)
-                    and getattr(node.func, "id", "") == "record_function"):
+                    and getattr(node.func, "attr", "") == "stage"):
                 names.add(node.args[0].value)
     assert names == set(trace_stats.STAGES) == profiling.RANGES
+    assert trace_stats.STAGES is spans.STAGES
     span = types.SimpleNamespace(key="pt_mi_sort", is_user_annotation=False)
     kern = types.SimpleNamespace(key="void cull_kernel<1>()",
                                  is_user_annotation=False)
