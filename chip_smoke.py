@@ -38,7 +38,11 @@ Phases, each fatal on failure:
   5. teapot 64x64 d4, 2 iterations, with the kernels (compiled) and with
      the plain versions on the card (render_chunk_eager: the plain
      versions read the host): the images must agree;
-  6. Cornell 800x800 d8 (no kernel on its path): ms/frame;
+  6. Cornell 800x800 d8: ms/frame; then counted as in phase 4 (`traced`):
+     the analytic kernel (csrc/analytic.cu) must launch once a bounce an
+     iteration, trace_depth times iterations, as the profiler saw it on
+     the card by name; that count is the kernel's `launches` in the
+     `kernels` line;
   7. the other mesh paths: teapot 800x800 d4 through bvh_impl "wide" (push
      and mask variants), "wide_nosort", "sorted", "brute" and "binned"
      with the 8-wide fallback, each timed untraced and then counted as in
@@ -184,7 +188,16 @@ Phases, each fatal on failure:
      the port's kernels seen on the card by name must equal the counters,
      the capture's record times the replays and the eager runs' (the total
      of the other device events is logged where it differs: elementwise
-     kernels change their names).
+     kernels change their names);
+ 30. the analytic closest hit (csrc/analytic.cu) on every bounce pool of
+     one Cornell 800x800 d8 and one alien 800x800 d4 iteration (recorded
+     at each intersect_scene call of the eager loop): one launch a call,
+     every output bit for bit against its plain twin
+     (ops/intersect.py analytic_plain), the kernel's device name seen by
+     the profiler; kernel ms (CUDA events), device ms (torch.profiler),
+     plain ms and the bound (AN_LANE_BYTES a lane over the memory rate, or
+     its FP32 operations over the FP32 rate, the larger), per bounce and
+     summed over the iteration.
 The second-to-last lines are one JSON object with every kernel's numbers and
 the card's name and power limit; the last line is the result object.
 Exits non-zero, printing no result, where torch sees no CUDA device.
@@ -224,6 +237,20 @@ OPS_BRUTE_TEST = 11
 # the FP32 peak (which counts a fused multiply-add as two operations) gives
 UNFUSED = 2.0
 ANIMAL = "scenes/animal.json"
+# phase 30: the analytic closest hit on every bounce pool of one 800x800
+# iteration of these scenes (label, file, depth)
+AN_SCENES = (("cornell", CORNELL, 8), ("alien", ANIMAL, 4))
+# bytes a lane a bounce: its ray read (6 floats), then t, the normal's three
+# planes, the material (int32) and the hit flag (one byte) written
+AN_LANE_BYTES = 45
+# FP32 operations a lane: for each box, two 3x4 transforms (42), the slab
+# test (33: per axis the clamp's compare, 2 subtractions, 2 divisions, min,
+# max, 3 compares; then 3 compares) and the merge's 2 compares; for each
+# sphere the transforms, the quadratic (32) and the merge; for a lane that
+# hits, the winner's normal once (its test again, a transform, normalize)
+OPS_AN_BOX = 77
+OPS_AN_SPHERE = 76
+OPS_AN_NORMAL = 110
 ANIMAL_LANES = 65536  # the plain version over every animal lane is too slow
 # the scan at ragged sizes (int32, bit for bit) beside the 640,000-lane mask
 RAGGED = (1, 31, 4095, 4097, 2 ** 24 + 3)
@@ -1626,6 +1653,97 @@ def compiled_phase(dev) -> None:
     log(f"phase 29: {time.perf_counter() - t_phase:.1f} s")
 
 
+def analytic_phase(dev, launches: int) -> dict:
+    """Phase 30 (the module docstring). Returns the kernel's report entry:
+    the first Cornell bounce's numbers, the largest difference compare()
+    found over every pool, and `launches`, the main path's count of phase 6;
+    raises on any failure."""
+    import torch
+
+    from pathtracer_tpu_torch import load_scene
+    from pathtracer_tpu_torch.engine import wavefront
+    from pathtracer_tpu_torch.ops import intersect, kernels
+    from pathtracer_tpu_torch.scene.types import MESH, SPHERE
+    from pathtracer_tpu_torch.utils.kernel_bench import cuda_ms, device_ms
+    from pathtracer_tpu_torch.utils.vec import Vec3
+
+    t_phase = time.perf_counter()
+    entry = None
+    err = 0.0
+    for label, path, depth in AN_SCENES:
+        sc, st = load_scene(path, dev, overrides={"RES": [800, 800],
+                                                  "DEPTH": depth})
+        pools = []
+        real = wavefront.intersect_scene
+
+        def recording(scene, geom_types, origin, direction, **kw):
+            pools.append((Vec3(*(c.clone() for c in origin)),
+                          Vec3(*(c.clone() for c in direction))))
+            return real(scene, geom_types, origin, direction, **kw)
+
+        with torch.inference_mode(), mock.patch.object(
+                wavefront, "intersect_scene", recording):
+            wavefront.render_chunk_eager(sc, st, wavefront.zero_accum(st, dev),
+                                         1, 1, 0, False)
+        torch.cuda.synchronize()
+        if len(pools) != depth:
+            raise AssertionError(f"analytic {label}: {len(pools)} bounce "
+                                 f"pools recorded, expected {depth}")
+        gt = st.geom_types
+        n_sphere = gt.count(SPHERE)
+        n_box = len(gt) - n_sphere - gt.count(MESH)
+        sums = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+        with torch.inference_mode():
+            for b, (o, d) in enumerate(pools):
+                name = f"analytic {label} bounce {b}"
+                kern = lambda: intersect.analytic_hit(sc, gt, o, d)
+                plain = lambda: intersect.analytic_plain(sc, gt, o, d)
+                before = kernels.LAUNCHES["analytic"]
+                got = kern()
+                if kernels.LAUNCHES["analytic"] != before + 1:
+                    raise AssertionError(f"{name}: not one launch")
+                ref = plain()
+                torch.cuda.synchronize()
+                flat = lambda r: (r[0], *r[1], r[2], r[3])
+                err = max(err, compare(name, flat(got), flat(ref),
+                                       (0, 1, 2, 3), (4, 5), (0, 1, 2, 3)))
+                n, hits = o.x.shape[0], int(got[3].sum())
+                ms = cuda_ms(kern, reps=20)
+                dev_ms, by_name = device_ms(kern, reps=20)
+                if not any("pt_analytic_hit" in k for k in by_name):
+                    raise AssertionError(f"{name}: the profiler saw no "
+                                         f"pt_analytic_hit in {by_name}")
+                plain_ms = cuda_ms(plain, reps=5, warmup=1)
+                ops = (n * (OPS_AN_BOX * n_box + OPS_AN_SPHERE * n_sphere)
+                       + OPS_AN_NORMAL * hits)
+                bound_ms, bound_by = bound(AN_LANE_BYTES * n, ops)
+                log(f"{name}: {n} lanes, {hits} hit a box or sphere, bit for "
+                    f"bit; kernel {ms:.4f} ms (device {dev_ms:.4f}), plain "
+                    f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+                    f"{bound_by} ({AN_LANE_BYTES * n} bytes, {ops} FP32 "
+                    "ops)")
+                for k, v in (("ms", ms), ("device_ms", dev_ms),
+                             ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
+                    sums[k] += v
+                if entry is None:
+                    entry = {"name": "analytic", "route": "cuda",
+                             "source": "csrc/analytic.cu",
+                             "replaces": "none (XLA fused the JAX loop)",
+                             "launches": launches, "ms": ms,
+                             "device_ms": dev_ms, "plain_ms": plain_ms,
+                             "bound_ms": bound_ms, "bound_by": bound_by,
+                             "library_ms": None}
+        log(f"analytic {label} 800x800 d{depth}: an iteration's {depth} "
+            f"calls: kernel {sums['ms']:.4f} ms (device "
+            f"{sums['device_ms']:.4f}), plain {sums['plain_ms']:.3f} ms, "
+            f"bound {sums['bound_ms']:.4f} ms")
+        entry[f"{label}_iteration"] = sums
+        del sc, pools
+    entry["max_abs_err"] = err
+    log(f"phase 30: {time.perf_counter() - t_phase:.1f} s")
+    return entry
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1992,8 +2110,17 @@ def main() -> int:
     c_img, cornell_ms = render_ms(render, c_scene, c_set, iters)
     if not np.isfinite(c_img).all() or not c_img.max() > 0:
         raise AssertionError("cornell image is not finite or all zero")
+    run = traced(lambda: render(c_scene, c_set, iterations=iters, seed=0),
+                 1, "cornell main path")
+    an_launches = run["launches"]["analytic"]
     log(f"cornell {c_set.width}x{c_set.height} d{c_set.trace_depth}: "
-        f"{cornell_ms:.2f} ms/frame over {iters} iterations")
+        f"{cornell_ms:.2f} ms/frame over {iters} iterations, launches "
+        f"{ {k: v for k, v in run['launches'].items() if v} } (seen on the "
+        "card by name)")
+    if an_launches != c_set.trace_depth * iters:
+        raise AssertionError(f"cornell main path: {an_launches} analytic "
+                             f"launches, expected {c_set.trace_depth} "
+                             f"bounces x {iters} iterations")
 
     # -- 7. the other mesh paths, teapot 800x800 d4 ---------------------------
     paths = [  # (label, bvh_impl, patches, kernels the path must launch)
@@ -2226,7 +2353,10 @@ def main() -> int:
     # -- 29. the compiled frame against the eager loop -----------------------
     compiled_phase(dev)
 
-    # -- 30. results ----------------------------------------------------------
+    # -- 30. the analytic closest hit ----------------------------------------
+    report["analytic"] = analytic_phase(dev, an_launches)
+
+    # -- 31. results ----------------------------------------------------------
 
     log(json.dumps({"kernels": list(report.values())}))
     log(card_line())

@@ -2,14 +2,16 @@
 
 The port of pathtracer_tpu/ops/intersect.py (reference src/intersections.cu):
 the analytic box and sphere tests, the slab test, and the scene-level closest
-hit `intersect_scene` with its mesh intersectors, named as in the JAX
-package: "binned" (ops/binned.py, the default for mesh scenes), "pallas"
-(the packet walk alone, ops/bvh_packet.py), "sorted" (the packet walk over
-coherence-sorted chunks), "wide" / "wide_nosort" (the 8-wide walk,
-ops/wide.py, with or without that sort), "brute" (every triangle,
-ops/brute.py) and "jnp" (`mesh_intersect`, the stackless reference walk of
-the JAX package, differentiable end to end). Every t is the world-ray
-parameter; t <= 0 encodes a miss.
+hit `intersect_scene`: its boxes and spheres by one launch of
+csrc/analytic.cu on CUDA (`analytic_hit`; `analytic_plain`, the plain twin,
+on the CPU and wherever autograd records), then its mesh intersectors, named
+as in the JAX package: "binned" (ops/binned.py, the default for mesh
+scenes), "pallas" (the packet walk alone, ops/bvh_packet.py), "sorted" (the
+packet walk over coherence-sorted chunks), "wide" / "wide_nosort" (the
+8-wide walk, ops/wide.py, with or without that sort), "brute" (every
+triangle, ops/brute.py) and "jnp" (`mesh_intersect`, the stackless reference
+walk of the JAX package, differentiable end to end). Every t is the
+world-ray parameter; t <= 0 encodes a miss.
 """
 from __future__ import annotations
 
@@ -18,7 +20,9 @@ from typing import Tuple
 import torch
 
 from ..scene.types import MESH, SPHERE, SceneArrays
+from ..utils import spans
 from ..utils.vec import Vec3, mat4_apply
+from . import kernels
 
 FLT_MAX = 3.402823466e38
 BVH_IMPLS = ("binned", "wide", "wide_nosort", "pallas", "sorted", "brute",
@@ -267,6 +271,69 @@ def _constant(fn, *args, **kwargs):
                      for a in fn(*args, **kwargs))
 
 
+def _merge(best, t, nrm, mat):
+    """The closest-hit merge of one intersector's (t, normal, material) into
+    best = (t_best, n_best, m_best, any_hit): a lane takes the hit where
+    t > 0 and t < t_best, strictly, so the first of equal t wins."""
+    t_best, n_best, m_best, any_hit = best
+    upd = torch.logical_and(t > 0.0, t < t_best)
+    return (torch.where(upd, t, t_best), Vec3.where(upd, nrm, n_best),
+            torch.where(upd, mat, m_best), torch.logical_or(any_hit, upd))
+
+
+def analytic_plain(scene: SceneArrays, geom_types: Tuple[int, ...],
+                   origin: Vec3, direction: Vec3):
+    """The closest hit over the scene's boxes and spheres in plain PyTorch,
+    merged in table order: (t_best [N], FLT_MAX where none is hit; normal
+    Vec3, +0 there; material_id [N] int32, 0 there; any_hit [N] bool).
+    Differentiable in the rays and the geom transforms. The twin of
+    csrc/analytic.cu (ops/kernels.py `analytic`), which gives its bits."""
+    n = origin.x.shape[0]
+    dev = origin.x.device
+    best = (torch.full((n,), FLT_MAX, device=dev), Vec3.zeros(n, dev),
+            torch.zeros((n,), dtype=torch.int32, device=dev),
+            torch.zeros((n,), dtype=torch.bool, device=dev))
+    g = scene.geoms
+    for i, gt in enumerate(geom_types):
+        if gt == MESH:
+            continue
+        fn = sphere_intersect if gt == SPHERE else box_intersect
+        t, nrm = fn(g.transform[i], g.inverse_transform[i],
+                    g.inv_transpose[i], origin, direction)
+        best = _merge(best, t, nrm, g.material_id[i].expand(n))
+    return best
+
+
+def analytic_route(device_type: str, records_grad: bool) -> str:
+    """How intersect_scene computes the analytic closest hit: "plain"
+    (analytic_plain) for CPU tensors; on CUDA, "grad" (analytic_plain, so
+    that autograd records it) where autograd records through the rays or the
+    geom transforms, else "kernel" (one launch of csrc/analytic.cu)."""
+    if device_type != "cuda":
+        return "plain"
+    return "grad" if records_grad else "kernel"
+
+
+def analytic_hit(scene: SceneArrays, geom_types: Tuple[int, ...],
+                 origin: Vec3, direction: Vec3):
+    """analytic_plain's result by the route analytic_route picks from the
+    inputs; a CUDA call that takes the plain expression for autograd is
+    counted (spans counter `analytic_grad`)."""
+    g = scene.geoms
+    records = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (*origin, *direction, g.inverse_transform,
+                                  g.inv_transpose))
+    route = analytic_route(origin.x.device.type, records)
+    if route == "kernel":
+        t, nx, ny, nz, mat, hit = kernels.analytic(
+            g, *(c.contiguous() for c in origin),
+            *(c.contiguous() for c in direction))
+        return t, Vec3(nx, ny, nz), mat, hit
+    if route == "grad":
+        spans.count("analytic_grad")
+    return analytic_plain(scene, geom_types, origin, direction)
+
+
 def intersect_scene(scene: SceneArrays, geom_types: Tuple[int, ...],
                     origin: Vec3, direction: Vec3,
                     bvh_impl: str = "pallas", active=None
@@ -274,7 +341,8 @@ def intersect_scene(scene: SceneArrays, geom_types: Tuple[int, ...],
     """Closest hit over all geoms (computeIntersectionsNaive,
     pathtrace.cu:441-522).
 
-    Analytic geoms run first; their closest hit is the mesh intersector's
+    Analytic geoms run first (`analytic_hit`: one kernel launch on CUDA
+    unless autograd records); their closest hit is the mesh intersector's
     pruning bound `t_bound`, exactly as in the JAX package. `bvh_impl` is
     one of BVH_IMPLS (dispatch of intersect.py:394-457): "binned", "wide",
     "wide_nosort" and "brute" make one pass over all meshes ("brute"
@@ -292,58 +360,41 @@ def intersect_scene(scene: SceneArrays, geom_types: Tuple[int, ...],
         raise ValueError(f"bvh_impl {bvh_impl!r} is not ported; "
                          f"use one of {BVH_IMPLS}")
 
-    n = origin.x.shape[0]
-    dev = origin.x.device
-    t_best = torch.full((n,), FLT_MAX, device=dev)
-    n_best = Vec3.zeros(n, dev)
-    m_best = torch.zeros((n,), dtype=torch.int32, device=dev)
-    any_hit = torch.zeros((n,), dtype=torch.bool, device=dev)
-
-    def merge(t, nrm, mat):
-        nonlocal t_best, n_best, m_best, any_hit
-        upd = torch.logical_and(t > 0.0, t < t_best)
-        t_best = torch.where(upd, t, t_best)
-        n_best = Vec3.where(upd, nrm, n_best)
-        m_best = torch.where(upd, mat, m_best)
-        any_hit = torch.logical_or(any_hit, upd)
-
-    g = scene.geoms
-    for i, gt in enumerate(geom_types):
-        if gt == MESH:
-            continue
-        fn = sphere_intersect if gt == SPHERE else box_intersect
-        t, nrm = fn(g.transform[i], g.inverse_transform[i],
-                    g.inv_transpose[i], origin, direction)
-        merge(t, nrm, g.material_id[i].expand(n))
+    best = analytic_hit(scene, geom_types, origin, direction)
 
     if MESH in geom_types:
         if bvh_impl == "binned":
             from .binned import mesh_intersect_binned
-            merge(*_constant(mesh_intersect_binned, scene, scene.mesh_roots,
-                             origin, direction, active=active,
-                             t_bound=t_best))
+            best = _merge(best, *_constant(
+                mesh_intersect_binned, scene, scene.mesh_roots, origin,
+                direction, active=active, t_bound=best[0]))
         elif bvh_impl == "wide":
             from .wide import mesh_intersect_wide_sorted
-            merge(*_constant(mesh_intersect_wide_sorted, scene,
-                             scene.mesh_roots, origin, direction,
-                             active=active, t_bound=t_best))
+            best = _merge(best, *_constant(
+                mesh_intersect_wide_sorted, scene, scene.mesh_roots, origin,
+                direction, active=active, t_bound=best[0]))
         elif bvh_impl == "wide_nosort":
             from .wide import mesh_intersect_wide
-            merge(*_constant(mesh_intersect_wide, scene, origin, direction,
-                             active=active, t_bound=t_best))
+            best = _merge(best, *_constant(
+                mesh_intersect_wide, scene, origin, direction, active=active,
+                t_bound=best[0]))
         elif bvh_impl == "brute":
             from .brute import mesh_intersect_brute
-            merge(*_constant(mesh_intersect_brute, scene, origin, direction))
+            best = _merge(best, *_constant(mesh_intersect_brute, scene,
+                                           origin, direction))
         elif bvh_impl == "jnp":
             for root in scene.mesh_roots:
-                merge(*mesh_intersect(scene, root, origin, direction))
+                best = _merge(best, *mesh_intersect(scene, root, origin,
+                                                    direction))
         else:
             from .bvh_packet import (mesh_intersect_packet,
                                      mesh_intersect_packet_sorted)
             walk = (mesh_intersect_packet_sorted if bvh_impl == "sorted"
                     else mesh_intersect_packet)
             for root in scene.mesh_roots:
-                merge(*_constant(walk, scene, root, origin, direction,
-                                 active=active, t_bound=t_best))
+                best = _merge(best, *_constant(
+                    walk, scene, root, origin, direction, active=active,
+                    t_bound=best[0]))
 
+    t_best, n_best, m_best, any_hit = best
     return torch.where(any_hit, t_best, -1.0), n_best, m_best

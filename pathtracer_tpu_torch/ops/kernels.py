@@ -1,7 +1,8 @@
 """Build, load and launch the hand-written CUDA kernels of csrc/.
 
 The mesh-intersection kernels (csrc/cull.cu, stream.cu, packet.cu, wide.cu,
-brute.cu) and the exclusive scan (csrc/scan.cu) are compiled by nvcc, one
+brute.cu), the analytic closest hit (csrc/analytic.cu, launched here by
+`analytic`) and the exclusive scan (csrc/scan.cu) are compiled by nvcc, one
 process a source, all started together, and linked into one shared library
 with a plain C interface, loaded with ctypes. The library is built on first
 use, from the package's sources only, into build/torch_kernels/ at the repo
@@ -29,8 +30,10 @@ the counts say what ran.
 No kernel has a backward, and none needs an autograd.Function: as the
 Pallas kernels have no AD rule in the JAX package, the mesh intersectors
 that launch them return their hits as constants
-(ops/intersect.py `_constant`), and the scan only reorders lanes on the
-forward-only engine modes.
+(ops/intersect.py `_constant`), the analytic closest hit runs its plain
+version wherever autograd records through the rays or the geom tables
+(ops/intersect.py `analytic_route`), and the scan only reorders lanes on
+the forward-only engine modes.
 """
 from __future__ import annotations
 
@@ -48,7 +51,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 REPO_ROOT = os.path.dirname(os.path.dirname(CSRC))
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "torch_kernels")
 SOURCES = ("cull.cu", "stream.cu", "packet.cu", "wide.cu", "brute.cu",
-           "scan.cu")
+           "scan.cu", "analytic.cu")
 HEADERS = ("common.cuh",)
 # -fmad=false and no fast math: each kernel matches its plain PyTorch version
 # bit for bit (see csrc/common.cuh)
@@ -56,7 +59,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"cull": 0, "stream": 0, "packet": 0, "wide_push": 0,
-            "wide_mask": 0, "brute": 0, "scan": 0}
+            "wide_mask": 0, "brute": 0, "scan": 0, "analytic": 0}
 FORMS: dict = {}
 
 _P = ctypes.c_void_p
@@ -89,6 +92,10 @@ _ARGTYPES = {
     # device, x, out, scratch, capacity, n, is_float, epoch, stream
     "pt_scan": [_I, _P, _P, _P, ctypes.c_longlong, _I, _I, ctypes.c_uint,
                 _P],
+    # device, gtype, material_id, inverse_transform, inv_transpose, n_geoms,
+    # 6 ray planes, 6 outputs, n, stream
+    "pt_analytic": [_I, _P, _P, _P, _P, _I] + [_P] * 6 + [_P] * 6
+                   + [_I, _P],
 }
 
 _lib = None
@@ -262,6 +269,44 @@ def hit_outputs(n: int, device: torch.device):
     t = torch.empty(n, dtype=torch.float32, device=device)
     return (t, *(torch.empty_like(t) for _ in range(3)),
             torch.empty(n, dtype=torch.int32, device=device))
+
+
+def analytic(geoms, ox, oy, oz, dx, dy, dz):
+    """csrc/analytic.cu on CUDA tensors: the closest hit over every box and
+    sphere of `geoms` (GeomArrays; MESH rows skipped) for every lane, in
+    one launch. Returns (t_best, FLT_MAX where no box or sphere is hit; nx,
+    ny, nz, +0 there; material_id int32, 0 there; any_hit bool), the bits of
+    ops/intersect.py analytic_plain."""
+    n = ox.shape[0]
+    dev = check("analytic", n, ray_ox_f32=ox, ray_oy_f32=oy, ray_oz_f32=oz,
+                ray_dx_f32=dx, ray_dy_f32=dy, ray_dz_f32=dz)
+    n_geoms = geoms.gtype.shape[0]
+    mats = (geoms.inverse_transform, geoms.inv_transpose)
+    if n_geoms:
+        if any(tuple(m.shape) != (n_geoms, 4, 4) or not m.is_contiguous()
+               for m in mats):
+            raise ValueError("analytic: transforms must be contiguous "
+                             "[G, 4, 4]")
+        got = {check("analytic", n_geoms, cols=16,
+                     inv_f32=mats[0].view(n_geoms, 16),
+                     invt_f32=mats[1].view(n_geoms, 16)),
+               check("analytic", n_geoms, cols=1,
+                     gtype_i32=geoms.gtype.view(n_geoms, 1),
+                     mat_i32=geoms.material_id.view(n_geoms, 1))}
+        if got != {dev}:
+            raise ValueError("analytic: geom tables and rays on different "
+                             "devices")
+        if any(m.data_ptr() % 16 for m in mats):
+            raise ValueError("analytic: transforms must be 16-byte aligned "
+                             "(the kernel reads their rows as float4)")
+    t, nx, ny, nz, mat = hit_outputs(n, dev)
+    hit = torch.empty(n, dtype=torch.bool, device=dev)
+    if n:
+        p = ptr
+        launch("analytic", dev, p(geoms.gtype), p(geoms.material_id),
+               p(mats[0]), p(mats[1]), n_geoms, p(ox), p(oy), p(oz), p(dx),
+               p(dy), p(dz), p(t), p(nx), p(ny), p(nz), p(mat), p(hit), n)
+    return t, nx, ny, nz, mat, hit
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -720,8 +720,10 @@ def make_scene_arrays(geom_list, material_list, bvh_nodes, bvh_tris, camera,
         inverse_transform=f32(np.stack(
             [np.asarray(x["inverse_transform"], np.float32)
              for x in geom_list])),
-        inv_transpose=f32(np.stack([np.asarray(x["inv_transpose"], np.float32)
-                                    for x in geom_list])),
+        # row-major like the other tables: csrc/analytic.cu reads its rows
+        inv_transpose=f32(np.ascontiguousarray(np.stack(
+            [np.asarray(x["inv_transpose"], np.float32)
+             for x in geom_list]))),
         root_node=i32([x.get("root_node", -1) for x in geom_list]),
     )
 

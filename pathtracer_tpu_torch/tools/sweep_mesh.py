@@ -89,20 +89,10 @@ def make_bounce_rays(scene, settings, seed: int = 0):
 
 def analytic_bound(scene, settings, o: Vec3, d: Vec3) -> torch.Tensor:
     """Per lane, the closest positive hit of the analytic geoms (boxes and
-    spheres), FLT_MAX where none (sweep_mesh.py:48)."""
-    from ..ops.intersect import box_intersect, sphere_intersect
-    from ..scene.types import MESH, SPHERE
-
-    g = scene.geoms
-    tb = torch.full((o.x.shape[0],), FLT_MAX, device=o.x.device)
-    for i, gt in enumerate(settings.geom_types):
-        if gt == MESH:
-            continue
-        fn = sphere_intersect if gt == SPHERE else box_intersect
-        t, _ = fn(g.transform[i], g.inverse_transform[i], g.inv_transpose[i],
-                  o, d)
-        tb = torch.where((t > 0.0) & (t < tb), t, tb)
-    return tb
+    spheres), FLT_MAX where none (sweep_mesh.py:48): the t of
+    ops/intersect.py analytic_hit, one kernel launch on the card."""
+    from ..ops.intersect import analytic_hit
+    return analytic_hit(scene, settings.geom_types, o, d)[0]
 
 
 @dataclasses.dataclass

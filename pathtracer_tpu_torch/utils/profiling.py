@@ -37,8 +37,10 @@ frame's timed graph (utils/spans.py), from the untraced timed replays of
 these measurements;
 the host ms of the compiled frame's calls, split into its spans
 (`frame_host`: pt_frame.key, .copy, .launch and the call's self time);
-and the graphs captured, dropped past the cache's budget and cached, with
-their pools' bytes (`graph_cache`).
+the graphs captured, dropped past the cache's budget and cached, with
+their pools' bytes (`graph_cache`); and the analytic closest hit's calls
+on the card, kernel launches against plain calls under autograd
+(`analytic_calls`).
 
 It runs on the CUDA device unless `--device cpu` asks for the CPU, where
 there is no device to trace: the device fields are then None.
@@ -62,7 +64,8 @@ from unittest import mock
 import torch
 
 from ..engine import persistent, wavefront
-from ..ops import binned, brute, bsdf, bvh_packet, intersect, rng, wide
+from ..ops import (binned, brute, bsdf, bvh_packet, intersect, kernels, rng,
+                   wide)
 from . import spans
 from .device import resolve_device
 from .vec import Vec3
@@ -77,6 +80,7 @@ STAGES = (
     (persistent, "generate_camera_rays", "raygen"),
     (wavefront, "intersect_scene", "intersect"),
     (persistent, "intersect_scene", "intersect"),
+    (intersect, "analytic_hit", "intersect.analytic"),
     (intersect, "box_intersect", "intersect.box"),
     (intersect, "sphere_intersect", "intersect.sphere"),
     (binned, "mesh_intersect_binned", "intersect.mesh_binned"),
@@ -102,6 +106,7 @@ KINDS = (
     ("wide_push_kernel", "wide push kernel"),
     ("wide_mask_kernel", "wide mask kernel"),
     ("brute_kernel", "brute kernel"),
+    ("analytic_hit", "analytic hit kernel"),
     ("memcpy", "memcpy/memset"),
     ("memset", "memcpy/memset"),
     ("sort", "sorts"),
@@ -151,7 +156,8 @@ PORT_KERNELS = (("cull_kernel", "cull"), ("stream_kernel", "stream"),
                 ("packet_kernel_walk", "packet"),
                 ("wide_push_kernel", "wide_push"),
                 ("wide_mask_kernel", "wide_mask"),
-                ("brute_kernel", "brute"), ("scan_kernel", "scan"))
+                ("brute_kernel", "brute"), ("scan_kernel", "scan"),
+                ("pt_analytic_hit", "analytic"))
 _PORT_NAME = re.compile(r"(?<![A-Za-z0-9_])(" + "|".join(
     name for name, _ in PORT_KERNELS) + r")(?![A-Za-z0-9_])")
 
@@ -338,6 +344,17 @@ def graph_cache() -> dict:
             "pool_bytes": sum(f.pool_bytes for f in frames)}
 
 
+def analytic_calls(launched: int) -> dict:
+    """The analytic closest hit's calls on the card: `launched` kernel
+    launches, the calls that took the plain expression because autograd
+    recorded (the span recorder's counter analytic_grad), and the kernel's
+    share of the two (None where there were none)."""
+    grad = spans.snapshot()["counters"].get("analytic_grad", 0)
+    total = launched + grad
+    return {"kernel": launched, "grad": grad,
+            "kernel_share": launched / total if total else None}
+
+
 def report(scene_file: str, device, iters: int = 3, seed: int = 0,
            overrides: dict | None = None, bvh: str | None = None,
            mode: str = "masked", tile: int = 16000,
@@ -348,7 +365,7 @@ def report(scene_file: str, device, iters: int = 3, seed: int = 0,
     binned.FALLBACK_IMPL), in engine mode `mode` (`tile`: the tiled mode's
     compact_tile); frame_ms and device_profile of the frame `frame`, and
     graph_stages, frame_host and graph_cache of their calls (the span
-    recorder starts afresh)."""
+    recorder starts afresh), and analytic_calls over all of them."""
     from ..scene.loader import load_scene
     fallback = fallback or binned.FALLBACK_IMPL
     scene, settings = load_scene(scene_file, device, overrides=overrides,
@@ -357,6 +374,7 @@ def report(scene_file: str, device, iters: int = 3, seed: int = 0,
     settings = mode_settings(settings, mode, tile)
     args = (scene, settings, iters, seed, mode)
     spans.reset()
+    launched = kernels.LAUNCHES["analytic"]
     with torch.inference_mode(), mock.patch.object(binned, "FALLBACK_IMPL",
                                                    fallback):
         return {
@@ -370,6 +388,8 @@ def report(scene_file: str, device, iters: int = 3, seed: int = 0,
             "frame_host": frame_host(),
             "graphs": graph_cache(),
             "stage_times": stage_times(*args),
+            "analytic": analytic_calls(kernels.LAUNCHES["analytic"]
+                                       - launched),
         }
 
 
@@ -531,6 +551,13 @@ def format_report(rep: dict) -> str:
                      f"{graphs['evictions']} dropped past the budget; "
                      f"{graphs['cached']} cached, "
                      f"{graphs['pool_bytes'] / 2**20:.1f} MiB of pool")
+    ana = rep.get("analytic")
+    if ana is not None:
+        share = ("none on the card" if ana["kernel_share"] is None
+                 else f"kernel share {100.0 * ana['kernel_share']:.1f}%")
+        lines.append(f"  analytic closest hit on the card: {ana['kernel']} "
+                     f"kernel launches, {ana['grad']} plain calls under "
+                     f"autograd ({share})")
     st = rep["stage_times"]
     lines.append(f"  synchronized stages (wall {st['wall_ms']:.2f} "
                  "ms/frame, inclusive):")

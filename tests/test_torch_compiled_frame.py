@@ -388,6 +388,8 @@ def test_port_launches_reads_the_kernels_by_name():
         _evt("void wide_compact_kernel(Args, int)", 1.0, 2),
         _evt("void wide_push_kernel<false>(Args)", 1.0, 2),
         _evt("(anonymous namespace)::brute_kernel(BruteArgs)", 1.0, 1),
+        _evt("(anonymous namespace)::pt_analytic_hit(int const*, int)", 1.0,
+             6),
         _evt("void cub::DeviceScanKernel<Policy>(int*)", 1.0, 3),
         _evt("void at::native::tensor_kernel_scan_innermost_dim<float>()",
              1.0, 3),
@@ -396,7 +398,7 @@ def test_port_launches_reads_the_kernels_by_name():
     ]
     assert port_launches(events, "cuda") == {
         "cull": 12, "stream": 8, "packet": 4, "wide_push": 2,
-        "wide_mask": 0, "brute": 1, "scan": 0}
+        "wide_mask": 0, "brute": 1, "scan": 0, "analytic": 6}
     assert sorted(k for _, k in PORT_KERNELS) == sorted(kernels.LAUNCHES)
 
 

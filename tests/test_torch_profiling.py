@@ -25,6 +25,8 @@ torch.set_num_threads(2)
      "(anonymous namespace)::Args, int)", "wide compaction kernel"),
     ("_ZN40_GLOBAL__N__a5541915_8_brute_cu_pt_brute12brute_kernelEPKfS1_i",
      "brute kernel"),
+    ("void (anonymous namespace)::pt_analytic_hit(int const*, int const*, "
+     "float4 const*)", "analytic hit kernel"),
     ("_ZN12_GLOBAL__N_113stream_kernelEPKiiPKfiiS3_", "stream kernel"),
     ("_ZN12_GLOBAL__N_113packet_kernelEPKfPKiiS1_i", "packet kernel"),
     ("_ZN12_GLOBAL__N_118packet_kernel_walkILb1EEvPKfPKiiS3_i",
