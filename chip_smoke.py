@@ -39,10 +39,11 @@ Phases, each fatal on failure:
      the plain versions on the card (render_chunk_eager: the plain
      versions read the host): the images must agree;
   6. Cornell 800x800 d8: ms/frame; then counted as in phase 4 (`traced`):
-     the analytic kernel (csrc/analytic.cu) must launch once a bounce an
-     iteration, trace_depth times iterations, as the profiler saw it on
-     the card by name; that count is the kernel's `launches` in the
-     `kernels` line;
+     the analytic kernel (csrc/analytic.cu) and the shade kernel
+     (csrc/shade.cu) must each launch once a bounce an iteration,
+     trace_depth times iterations, as the profiler saw them on the card by
+     name; those counts are the kernels' `launches` in the `kernels`
+     line;
   7. the other mesh paths: teapot 800x800 d4 through bvh_impl "wide" (push
      and mask variants), "wide_nosort", "sorted", "brute" and "binned"
      with the 8-wide fallback, each timed untraced and then counted as in
@@ -197,7 +198,16 @@ Phases, each fatal on failure:
      the profiler; kernel ms (CUDA events), device ms (torch.profiler),
      plain ms and the bound (AN_LANE_BYTES a lane over the memory rate, or
      its FP32 operations over the FP32 rate, the larger), per bounce and
-     summed over the iteration.
+     summed over the iteration;
+ 31. the shade kernel (csrc/shade.cu) on every bounce pool of the same two
+     iterations (recorded at each shade_lanes call of the eager loop): one
+     launch a call, every output bit for bit against its plain twin (the
+     draws of ops/rng.py and ops/bsdf.py shade), the kernel's device name
+     seen by the profiler; kernel ms (CUDA events: the eager call's host
+     time where it is longer), device ms (torch.profiler), plain ms and the
+     bound (SH_LIVE_BYTES a lane with bounces left, SH_DEAD_BYTES a lane
+     copied through, over the memory rate), per bounce and summed over the
+     iteration.
 The second-to-last lines are one JSON object with every kernel's numbers and
 the card's name and power limit; the last line is the result object.
 Exits non-zero, printing no result, where torch sees no CUDA device.
@@ -251,6 +261,13 @@ AN_LANE_BYTES = 45
 OPS_AN_BOX = 77
 OPS_AN_SPHERE = 76
 OPS_AN_NORMAL = 110
+# phase 31: bytes a lane a bounce of the shade kernel: a lane with bounces
+# left reads origin, direction, colour, remaining_bounces, t, material id,
+# normal (4 B a value) and its pixel id (8 B), and writes origin,
+# direction, colour and remaining_bounces; a lane copied through reads and
+# writes those four alone
+SH_LIVE_BYTES = 108
+SH_DEAD_BYTES = 80
 ANIMAL_LANES = 65536  # the plain version over every animal lane is too slow
 # the scan at ragged sizes (int32, bit for bit) beside the 640,000-lane mask
 RAGGED = (1, 31, 4095, 4097, 2 ** 24 + 3)
@@ -1744,6 +1761,102 @@ def analytic_phase(dev, launches: int) -> dict:
     return entry
 
 
+def shade_phase(dev, launches: int) -> dict:
+    """Phase 31 (the module docstring). Returns the kernel's report entry:
+    the first Cornell bounce's numbers, each scene's iteration summed, and
+    `launches`, the main path's count of phase 6; raises on any failure."""
+    import torch
+
+    from pathtracer_tpu_torch import load_scene
+    from pathtracer_tpu_torch.engine import wavefront
+    from pathtracer_tpu_torch.ops import bsdf, kernels
+    from pathtracer_tpu_torch.utils.kernel_bench import cuda_ms, device_ms
+    from pathtracer_tpu_torch.utils.vec import Vec3
+
+    def plain(origin, direction, color, rb, t, normal, mat, mats, irng,
+              depth, lane, salt=None, any_glossy=True, any_refractive=True,
+              depth_quirk=False, rr_start=0):
+        u = irng.uniforms(depth, lane, 5 if rr_start else 4, salt=salt)
+        return bsdf.shade(origin, direction, color, rb, t, normal, mat, mats,
+                          u, any_glossy=any_glossy,
+                          any_refractive=any_refractive,
+                          depth_quirk=depth_quirk, rr_depth=depth,
+                          rr_start=rr_start)
+
+    def clone(a):
+        if isinstance(a, torch.Tensor):
+            return a.clone()
+        return Vec3(*(c.clone() for c in a)) if isinstance(a, Vec3) else a
+
+    t_phase = time.perf_counter()
+    entry = None
+    for label, path, depth in AN_SCENES:
+        sc, st = load_scene(path, dev, overrides={"RES": [800, 800],
+                                                  "DEPTH": depth})
+        calls = []
+        real = wavefront.shade_lanes
+
+        def recording(*args, **kw):
+            calls.append(([clone(a) for a in args], dict(kw)))
+            return real(*args, **kw)
+
+        with torch.inference_mode(), mock.patch.object(
+                wavefront, "shade_lanes", recording):
+            wavefront.render_chunk_eager(sc, st, wavefront.zero_accum(st, dev),
+                                         1, 1, 0, False)
+        torch.cuda.synchronize()
+        if len(calls) != depth:
+            raise AssertionError(f"shade {label}: {len(calls)} bounce pools "
+                                 f"recorded, expected {depth}")
+        sums = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+        with torch.inference_mode():
+            for b, (args, kw) in enumerate(calls):
+                name = f"shade {label} bounce {b}"
+                kern = lambda: bsdf.shade_lanes(*args, **kw)
+                twin = lambda: plain(*args, **kw)
+                before = kernels.LAUNCHES["shade"]
+                got = kern()
+                if kernels.LAUNCHES["shade"] != before + 1:
+                    raise AssertionError(f"{name}: not one launch")
+                ref = twin()
+                torch.cuda.synchronize()
+                flat = lambda r: (*r[0], *r[1], *r[2], r[3])
+                compare(name, flat(got), flat(ref), range(9), (9,),
+                        range(9))
+                n, live = args[4].shape[0], int((args[3] > 0).sum())
+                ms = cuda_ms(kern, reps=20)
+                dev_ms, by_name = device_ms(kern, reps=20)
+                if not any("pt_shade_lanes" in k for k in by_name):
+                    raise AssertionError(f"{name}: the profiler saw no "
+                                         f"pt_shade_lanes in {by_name}")
+                plain_ms = cuda_ms(twin, reps=5, warmup=1)
+                n_bytes = SH_LIVE_BYTES * live + SH_DEAD_BYTES * (n - live)
+                bound_ms, _ = bound(n_bytes, 0)
+                log(f"{name}: {n} lanes, {live} with bounces left, bit for "
+                    f"bit; kernel {ms:.4f} ms (device {dev_ms:.4f}), plain "
+                    f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by bytes "
+                    f"({n_bytes})")
+                for k, v in (("ms", ms), ("device_ms", dev_ms),
+                             ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
+                    sums[k] += v
+                if entry is None:
+                    entry = {"name": "shade", "route": "cuda",
+                             "source": "csrc/shade.cu",
+                             "replaces": "none (XLA fused the JAX shade)",
+                             "launches": launches, "ms": ms,
+                             "device_ms": dev_ms, "plain_ms": plain_ms,
+                             "bound_ms": bound_ms, "bound_by": "bytes",
+                             "library_ms": None}
+        log(f"shade {label} 800x800 d{depth}: an iteration's {depth} calls: "
+            f"kernel {sums['ms']:.4f} ms (device {sums['device_ms']:.4f}), "
+            f"plain {sums['plain_ms']:.3f} ms, bound "
+            f"{sums['bound_ms']:.4f} ms")
+        entry[f"{label}_iteration"] = sums
+        del sc, calls
+    log(f"phase 31: {time.perf_counter() - t_phase:.1f} s")
+    return entry
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2117,10 +2230,12 @@ def main() -> int:
         f"{cornell_ms:.2f} ms/frame over {iters} iterations, launches "
         f"{ {k: v for k, v in run['launches'].items() if v} } (seen on the "
         "card by name)")
-    if an_launches != c_set.trace_depth * iters:
-        raise AssertionError(f"cornell main path: {an_launches} analytic "
-                             f"launches, expected {c_set.trace_depth} "
-                             f"bounces x {iters} iterations")
+    sh_launches = run["launches"]["shade"]
+    for name, got in (("analytic", an_launches), ("shade", sh_launches)):
+        if got != c_set.trace_depth * iters:
+            raise AssertionError(f"cornell main path: {got} {name} "
+                                 f"launches, expected {c_set.trace_depth} "
+                                 f"bounces x {iters} iterations")
 
     # -- 7. the other mesh paths, teapot 800x800 d4 ---------------------------
     paths = [  # (label, bvh_impl, patches, kernels the path must launch)
@@ -2356,7 +2471,10 @@ def main() -> int:
     # -- 30. the analytic closest hit ----------------------------------------
     report["analytic"] = analytic_phase(dev, an_launches)
 
-    # -- 31. results ----------------------------------------------------------
+    # -- 31. shade ----------------------------------------------------------
+    report["shade"] = shade_phase(dev, sh_launches)
+
+    # -- 32. results ----------------------------------------------------------
 
     log(json.dumps({"kernels": list(report.values())}))
     log(card_line())

@@ -75,7 +75,7 @@ import numpy as np
 import torch
 
 from ..ops import kernels, rng
-from ..ops.bsdf import shade
+from ..ops.bsdf import shade_lanes
 from ..ops.camera import generate_camera_rays
 from ..ops.intersect import intersect_scene
 from ..ops.scan import (SEG, sort_by_key_multisort, sort_by_key_segmented,
@@ -153,18 +153,17 @@ def bounce_step(scene: SceneArrays, settings: RenderSettings,
 def _shade(scene, settings, irng, depth, state, t, normal, mat_id,
            salt=None):
     """The bounce's draws and shade under the pt_shade range: the next
-    (origin, direction, color, remaining_bounces). `salt`: the tiled
-    mode's tile index."""
+    (origin, direction, color, remaining_bounces), by ops/bsdf.py
+    shade_lanes (one launch of csrc/shade.cu on a CUDA device). `salt`:
+    the tiled mode's tile index."""
     with spans.stage("pt_shade"):
-        u = irng.uniforms(depth, state.pixel, 5 if settings.rr_start else 4,
-                          salt=salt)
-        return shade(
+        return shade_lanes(
             state.origin, state.direction, state.color,
-            state.remaining_bounces, t, normal, mat_id, scene.materials, u,
+            state.remaining_bounces, t, normal, mat_id, scene.materials,
+            irng, depth, state.pixel, salt=salt,
             any_glossy=settings.any_glossy,
             any_refractive=settings.any_refractive,
-            depth_quirk=settings.depth_quirk,
-            rr_depth=depth, rr_start=settings.rr_start)
+            depth_quirk=settings.depth_quirk, rr_start=settings.rr_start)
 
 
 def _gather(image: Vec3, color: Vec3, rb: torch.Tensor) -> torch.Tensor:

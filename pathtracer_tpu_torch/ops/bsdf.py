@@ -8,6 +8,12 @@ package's is: the Fresnel and gloss picks carry their branch-probability
 gradient through `_branch_prob_surrogate`, and the guards against inf and NaN
 in unselected branches (refract's k clamp, the IOR of non-refractive lanes,
 Vec3.normalize's clamp) are kept.
+
+`shade_lanes` is the engine's entry: a bounce's draws and shade. On CPU
+tensors it draws (ops/rng.py) and runs `shade`; on CUDA tensors it launches
+csrc/shade.cu (ops/kernels.py `shade`), which draws in the kernel and gives
+`shade`'s bits, through an autograd.Function whose backward runs `shade`
+again on the saved inputs, so that gradients are the plain twin's.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import torch
 from ..scene.types import MaterialArrays
 from ..utils.math import SQRT_OF_ONE_THIRD, TWO_PI
 from ..utils.vec import Vec3
+from . import kernels, rng
 
 SCATTER_EPS = 1e-3  # interactions.cu:61
 LUMA_R, LUMA_G, LUMA_B = 0.2126, 0.7152, 0.0722  # interactions.cu:75-76
@@ -267,3 +274,118 @@ def shade(origin: Vec3, direction: Vec3, color: Vec3,
     new_rb = torch.where(torch.logical_or(emissive_active, miss_active), 0,
                          new_rb)
     return new_origin, new_direction, new_color, new_rb
+
+
+def _unpack(opts: dict, args):
+    """_ShadeKernel's inputs as (origin, direction, color, rb, t, normal,
+    mat_id, materials, key, pixel, planes): the key and pixel ids of the
+    hash (the key a 0-d tensor, or the host int in opts) or the uniform
+    planes, the others None."""
+    ox, oy, oz, dx, dy, dz, cx, cy, cz, rb, t, nx, ny, nz, mat = args[:15]
+    mats = MaterialArrays(args[15], args[16], None, *args[17:21])
+    draws = args[21:]
+    key = pixel = planes = None
+    if opts["hash"]:
+        key, pixel = draws
+        if key is None:
+            key = opts["key"]
+    else:
+        planes = draws
+    return (Vec3(ox, oy, oz), Vec3(dx, dy, dz), Vec3(cx, cy, cz), rb, t,
+            Vec3(nx, ny, nz), mat, mats, key, pixel, planes)
+
+
+class _ShadeKernel(torch.autograd.Function):
+    """csrc/shade.cu as an autograd.Function. Forward: one launch. Backward:
+    `shade` run again on the saved inputs under autograd, with the same
+    uniforms (drawn again from the saved key and pixel ids, or the saved
+    planes), and its gradients returned. The inputs after `opts` are
+    origin, direction, color (3 planes each), remaining_bounces, t, normal
+    (3), mat_id, the 6 material tables shade reads, then the key (a 0-d
+    tensor, or None for opts["key"]) and pixel ids, or the uniform
+    planes."""
+
+    @staticmethod
+    def forward(ctx, opts, *args):
+        o, d, c, rb, t, n, mat, mats, key, pixel, planes = _unpack(opts,
+                                                                   args)
+        ctx.opts = opts
+        ctx.save_for_backward(*args)
+        return kernels.shade(o, d, c, rb, t, n, mat, mats, key, pixel,
+                             planes, any_glossy=opts["any_glossy"],
+                             any_refractive=opts["any_refractive"],
+                             rr=opts["rr_start"] > 0,
+                             rr_on=0 < opts["rr_start"] <= opts["depth"],
+                             depth_quirk=opts["depth_quirk"])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        opts = ctx.opts
+        saved = ctx.saved_tensors
+        want = [k for k in range(len(saved)) if ctx.needs_input_grad[k + 1]]
+        with torch.enable_grad():
+            xs = list(saved)
+            for k in want:
+                xs[k] = saved[k].detach().requires_grad_(True)
+            o, d, c, rb, t, n, mat, mats, key, pixel, u = _unpack(opts, xs)
+            if key is not None:
+                u = rng.fast_uniforms_perlane(
+                    rng._pixel_mix(key, pixel), 5 if opts["rr_start"] else 4)
+            outs = shade(o, d, c, rb, t, n, mat, mats, u,
+                         any_glossy=opts["any_glossy"],
+                         any_refractive=opts["any_refractive"],
+                         depth_quirk=opts["depth_quirk"],
+                         rr_depth=opts["depth"], rr_start=opts["rr_start"])
+            pairs = [(y, g) for y, g in zip((*outs[0], *outs[1], *outs[2]),
+                                            grads)
+                     if y.requires_grad]
+            got = torch.autograd.grad(
+                [y for y, _ in pairs], [xs[k] for k in want],
+                [g for _, g in pairs], allow_unused=True) if pairs else ()
+        result = [None] * len(saved)
+        for k, g in zip(want, got):
+            result[k] = g
+        return (None, *result)
+
+
+def shade_lanes(origin: Vec3, direction: Vec3, color: Vec3,
+                remaining_bounces: torch.Tensor, t: torch.Tensor,
+                normal: Vec3, mat_id: torch.Tensor,
+                materials: MaterialArrays, irng: rng.IterationRng,
+                depth: int, lane: torch.Tensor, salt=None,
+                any_glossy: bool = True, any_refractive: bool = True,
+                depth_quirk: bool = False, rr_start: int = 0):
+    """One bounce's draws and shade for the lanes `lane` (their pixel ids
+    on the fast RNG, their rows on threefry; `salt` the tiled mode's tile
+    index): `shade`'s (origin, direction, color, remaining_bounces) with
+    the uniforms irng.uniforms(depth, lane, 4 or 5, salt) and rr_depth =
+    depth. CPU tensors: that draw and `shade`. CUDA tensors: one launch of
+    csrc/shade.cu, which draws the fast hash itself from the depth's key
+    (irng.depth_key) and the pixel ids (irng.pixels) or reads the threefry
+    planes the engine draws, through `_ShadeKernel` (the plain twin's
+    gradients)."""
+    m = 5 if rr_start else 4
+    if origin.x.device.type != "cuda":
+        u = irng.uniforms(depth, lane, m, salt=salt)
+        return shade(origin, direction, color, remaining_bounces, t, normal,
+                     mat_id, materials, u, any_glossy=any_glossy,
+                     any_refractive=any_refractive, depth_quirk=depth_quirk,
+                     rr_depth=depth, rr_start=rr_start)
+    opts = {"hash": irng.fast, "key": None, "depth": depth,
+            "rr_start": rr_start, "any_glossy": any_glossy,
+            "any_refractive": any_refractive, "depth_quirk": depth_quirk}
+    if irng.fast:
+        key = irng.depth_key(depth)
+        if not isinstance(key, torch.Tensor):
+            opts["key"], key = key, None
+        draws = (key, irng.pixels(lane).to(torch.int64).contiguous())
+    else:
+        draws = tuple(p.contiguous()
+                      for p in irng.uniforms(depth, lane, m, salt=salt))
+    out = _ShadeKernel.apply(
+        opts, *(x.contiguous() for x in (*origin, *direction, *color)),
+        remaining_bounces.contiguous(), t.contiguous(),
+        *(x.contiguous() for x in normal), mat_id.to(torch.int32).contiguous(),
+        materials.color, materials.specular_color, materials.has_reflective,
+        materials.has_refractive, materials.ior, materials.emittance, *draws)
+    return Vec3(*out[0:3]), Vec3(*out[3:6]), Vec3(*out[6:9]), out[9]

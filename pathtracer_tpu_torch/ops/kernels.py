@@ -2,7 +2,8 @@
 
 The mesh-intersection kernels (csrc/cull.cu, stream.cu, packet.cu, wide.cu,
 brute.cu), the analytic closest hit (csrc/analytic.cu, launched here by
-`analytic`) and the exclusive scan (csrc/scan.cu) are compiled by nvcc, one
+`analytic`), shade (csrc/shade.cu, launched by `shade`) and the exclusive
+scan (csrc/scan.cu) are compiled by nvcc, one
 process a source, all started together, and linked into one shared library
 with a plain C interface, loaded with ctypes. The library is built on first
 use, from the package's sources only, into build/torch_kernels/ at the repo
@@ -27,13 +28,15 @@ the compiled frame (engine/wavefront.py) takes the counts its capture added
 (`restore_counts`), and adds them again on every replay (`add_counts`), so
 the counts say what ran.
 
-No kernel has a backward, and none needs an autograd.Function: as the
-Pallas kernels have no AD rule in the JAX package, the mesh intersectors
-that launch them return their hits as constants
-(ops/intersect.py `_constant`), the analytic closest hit runs its plain
-version wherever autograd records through the rays or the geom tables
-(ops/intersect.py `analytic_route`), and the scan only reorders lanes on
-the forward-only engine modes.
+No kernel has a backward of its own. Shade's is a recompute: ops/bsdf.py
+`shade_lanes` launches it through an autograd.Function whose backward runs
+the plain twin (ops/bsdf.py `shade`) again on the saved inputs and returns
+its gradients. The others need no autograd.Function: as the Pallas kernels
+have no AD rule in the JAX package, the mesh intersectors that launch them
+return their hits as constants (ops/intersect.py `_constant`), the
+analytic closest hit runs its plain version wherever autograd records
+through the rays or the geom tables (ops/intersect.py `analytic_route`),
+and the scan only reorders lanes on the forward-only engine modes.
 """
 from __future__ import annotations
 
@@ -51,7 +54,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 REPO_ROOT = os.path.dirname(os.path.dirname(CSRC))
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "torch_kernels")
 SOURCES = ("cull.cu", "stream.cu", "packet.cu", "wide.cu", "brute.cu",
-           "scan.cu", "analytic.cu")
+           "scan.cu", "analytic.cu", "shade.cu")
 HEADERS = ("common.cuh",)
 # -fmad=false and no fast math: each kernel matches its plain PyTorch version
 # bit for bit (see csrc/common.cuh)
@@ -59,7 +62,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"cull": 0, "stream": 0, "packet": 0, "wide_push": 0,
-            "wide_mask": 0, "brute": 0, "scan": 0, "analytic": 0}
+            "wide_mask": 0, "brute": 0, "scan": 0, "analytic": 0,
+            "shade": 0}
 FORMS: dict = {}
 
 _P = ctypes.c_void_p
@@ -96,6 +100,12 @@ _ARGTYPES = {
     # 6 ray planes, 6 outputs, n, stream
     "pt_analytic": [_I, _P, _P, _P, _P, _I] + [_P] * 6 + [_P] * 6
                    + [_I, _P],
+    # device, flags, 6 material tables, n_mats, 9 ray planes, rb, t,
+    # 3 normal planes, mat, key (device, or null) and key (host), pixel,
+    # 5 uniform planes, rr_on, 10 outputs, n, stream
+    "pt_shade": [_I, _I] + [_P] * 6 + [_I] + [_P] * 9 + [_P] * 6
+                + [_P, ctypes.c_uint, _P] + [_P] * 5 + [_I] + [_P] * 10
+                + [_I, _P],
 }
 
 _lib = None
@@ -307,6 +317,89 @@ def analytic(geoms, ox, oy, oz, dx, dy, dz):
                p(mats[0]), p(mats[1]), n_geoms, p(ox), p(oy), p(oz), p(dx),
                p(dy), p(dz), p(t), p(nx), p(ny), p(nz), p(mat), p(hit), n)
     return t, nx, ny, nz, mat, hit
+
+
+# csrc/shade.cu stages the material table, 10 floats a material, in a block's
+# shared memory, within the 48 KiB a launch may ask for without opting in
+SHADE_MAX_MATERIALS = 48 * 1024 // 40
+# csrc/shade.cu's template flags
+SHADE_HASH, SHADE_GLOSSY, SHADE_REFRACTIVE, SHADE_RR, SHADE_QUIRK = (
+    1, 2, 4, 8, 16)
+
+
+def shade(origin, direction, color, remaining_bounces, t, normal, mat_id,
+          materials, key=None, pixel=None, uniforms=None, *,
+          any_glossy: bool = True, any_refractive: bool = True,
+          rr: bool = False, rr_on: bool = False, depth_quirk: bool = False):
+    """csrc/shade.cu on CUDA tensors: one bounce's draws, material fetch and
+    scatter for every lane, in one launch; the bits of ops/bsdf.py shade
+    given the same uniforms. The draws come from the fast hash, keyed by
+    `key` (the depth's uint32 key: a host int, or a 0-d int64 tensor on the
+    lanes' device that the kernel reads there) and `pixel` ([n] int64 pixel
+    ids), or, with key None, from `uniforms` (4 [n] float32 planes, 5 with
+    `rr`). `rr`: Russian roulette is on (rr_start > 0); `rr_on`: this
+    bounce's depth reaches rr_start. origin, direction, color and normal
+    are (x, y, z) planes. Returns the new (ox, oy, oz, dx, dy, dz, cx, cy,
+    cz, remaining_bounces), each a new tensor; lanes with
+    remaining_bounces <= 0 are copied through."""
+    n = t.shape[0]
+    planes = {f"ray_{g}{c}_f32": v for g, vec in
+              (("o", origin), ("d", direction), ("c", color), ("n", normal))
+              for c, v in zip("xyz", vec)}
+    dev = check("shade", n, ray_rb_i32=remaining_bounces, ray_t_f32=t,
+                ray_mat_i32=mat_id, **planes)
+    m = materials.color.shape[0]
+    if not 0 < m <= SHADE_MAX_MATERIALS:
+        raise ValueError(f"shade: {m} materials, the kernel stages 1 to "
+                         f"{SHADE_MAX_MATERIALS}")
+    tables = (materials.color, materials.specular_color,
+              materials.has_reflective, materials.has_refractive,
+              materials.ior, materials.emittance)
+    got = check("shade", m, cols=3, color_f32=tables[0], spec_f32=tables[1])
+    got2 = check("shade", m, cols=1,
+                 **{f"{k}_f32": v.view(m, 1) for k, v in
+                    zip(("refl", "refr", "ior", "emit"), tables[2:])})
+    if {got, got2} != {dev}:
+        raise ValueError("shade: material tables and lanes on different "
+                         "devices")
+    flags = ((SHADE_GLOSSY if any_glossy else 0)
+             | (SHADE_REFRACTIVE if any_refractive else 0)
+             | (SHADE_RR if rr else 0) | (SHADE_QUIRK if depth_quirk else 0))
+    null = ctypes.c_void_p(None)
+    key_dev, key_host, pix, u = null, 0, null, [null] * 5
+    if key is not None:
+        flags |= SHADE_HASH
+        if pixel is None or pixel.dtype != torch.int64 or (
+                pixel.shape != (n,)) or not pixel.is_contiguous() or (
+                pixel.device != dev):
+            raise ValueError("shade: pixel must be a contiguous [n] int64 "
+                             "tensor on the lanes' device")
+        pix = ptr(pixel)
+        if isinstance(key, torch.Tensor):
+            if key.dtype != torch.int64 or key.numel() != 1 or (
+                    key.device != dev):
+                raise ValueError("shade: a tensor key must be one int64 on "
+                                 "the lanes' device")
+            key_dev = ptr(key)
+        else:
+            key_host = int(key) & 0xFFFFFFFF
+    else:
+        want = 5 if rr else 4
+        if uniforms is None or len(uniforms) != want:
+            raise ValueError(f"shade: {want} uniform planes or a key")
+        check("shade", n, **{f"ray_u{j}_f32": v
+                             for j, v in enumerate(uniforms)})
+        u[:want] = [ptr(v) for v in uniforms]
+    outs = [torch.empty(n, dtype=torch.float32, device=dev)
+            for _ in range(9)]
+    outs.append(torch.empty(n, dtype=torch.int32, device=dev))
+    if n:
+        launch("shade", dev, flags, *(ptr(x) for x in tables), m,
+               *(ptr(x) for x in (*origin, *direction, *color)),
+               ptr(remaining_bounces), ptr(t), *(ptr(x) for x in normal),
+               ptr(mat_id), key_dev, key_host, pix, *u, int(rr_on),
+               *(ptr(x) for x in outs), n)
+    return tuple(outs)
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

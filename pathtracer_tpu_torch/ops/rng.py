@@ -307,13 +307,25 @@ class IterationRng:
             if key_salt is not None:
                 self.key = fold_in(self.key, int(key_salt))
 
-    def _state(self, depth: int, lane: torch.Tensor) -> torch.Tensor:
+    def depth_key(self, depth: int):
+        """The fast path's key of `depth`, which each lane's state mixes
+        with its pixel id (`_pixel_mix`): a host int for an int iteration,
+        else a 0-d int64 tensor on the iteration's device (a view of the
+        keys made at once where the depth has one)."""
+        if self.keyed is not None and -2 <= depth < KEYED_DEPTHS - 2:
+            return self.keyed[depth + 2]
+        return _depth_mix(_sample_key(self.seed, self.iteration), depth)
+
+    def pixels(self, lane: torch.Tensor) -> torch.Tensor:
+        """The fast path's pixel ids of the lanes `lane`:
+        pixel_map(lane + pixel_offset) (the lanes themselves where both are
+        the identity)."""
         if self.offset:
             lane = lane + self.offset
-        if self.keyed is not None and -2 <= depth < KEYED_DEPTHS - 2:
-            return _pixel_mix(self.keyed[depth + 2], self.pixel_map(lane))
-        return decision_state(self.seed, self.iteration, depth,
-                              self.pixel_map(lane))
+        return self.pixel_map(lane)
+
+    def _state(self, depth: int, lane: torch.Tensor) -> torch.Tensor:
+        return _pixel_mix(self.depth_key(depth), self.pixels(lane))
 
     def _key(self, depth: int, salt) -> tuple:
         k = fold_in(self.key, depth)

@@ -99,9 +99,11 @@ def device_ms(fn, reps: int, warmup: int = 2) -> tuple[float, dict]:
     tracing alike. So the calls are framed by PAD_SPINS short spin kernels
     on each side, left out of the sums, which absorb a loss at either end;
     every other kernel or memset must be recorded a whole multiple of
-    `reps` times, and a profile that fails this is taken again, up to
-    ATTEMPTS times, after which this raises rather than report a time with
-    calls missing. Range spans are left out (`device_sums`)."""
+    `reps` times, and at least one must be (a profile has also come back
+    with no device activity at all); a profile that fails this is taken
+    again, up to ATTEMPTS times, after which this raises rather than
+    report a time with calls missing. Range spans are left out
+    (`device_sums`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -120,7 +122,7 @@ def device_ms(fn, reps: int, warmup: int = 2) -> tuple[float, dict]:
         by_name, counts = device_sums(prof.key_averages(), reps,
                                       DeviceType.CUDA)
         lost = {k: n for k, n in counts.items() if n % reps}
-        if not lost:
+        if counts and not lost:
             return sum(by_name.values()), by_name
     raise RuntimeError(f"device_ms: over {reps} calls the profiler "
                        f"recorded {lost} ({ATTEMPTS} attempts)")

@@ -92,8 +92,9 @@ STAGES = (
     (brute, "brute", "mesh.brute"),
     (wavefront, "sort_by_key_segmented", "mode.sorts"),
     (wavefront, "sort_by_key_multisort", "mode.sorts"),
-    (wavefront, "shade", "shade"),
+    (wavefront, "shade_lanes", "shade"),
     (persistent, "shade", "shade"),
+    (bsdf, "shade", "shade.plain"),
 )
 
 # device kernel name fragment -> kind, first match wins
@@ -107,6 +108,7 @@ KINDS = (
     ("wide_mask_kernel", "wide mask kernel"),
     ("brute_kernel", "brute kernel"),
     ("analytic_hit", "analytic hit kernel"),
+    ("shade_lanes", "shade kernel"),
     ("memcpy", "memcpy/memset"),
     ("memset", "memcpy/memset"),
     ("sort", "sorts"),
@@ -157,7 +159,8 @@ PORT_KERNELS = (("cull_kernel", "cull"), ("stream_kernel", "stream"),
                 ("wide_push_kernel", "wide_push"),
                 ("wide_mask_kernel", "wide_mask"),
                 ("brute_kernel", "brute"), ("scan_kernel", "scan"),
-                ("pt_analytic_hit", "analytic"))
+                ("pt_analytic_hit", "analytic"),
+                ("pt_shade_lanes", "shade"))
 _PORT_NAME = re.compile(r"(?<![A-Za-z0-9_])(" + "|".join(
     name for name, _ in PORT_KERNELS) + r")(?![A-Za-z0-9_])")
 
@@ -468,12 +471,12 @@ def measure_stages(scene, settings, seed: int = 0,
     t, normal, mat = f_isect(0.0)
 
     def f_shade(it):
-        u = irng(it).uniforms(0, state.pixel, 4)
-        return bsdf.shade(state.origin, state.direction, state.color,
-                          state.remaining_bounces, t, normal, mat,
-                          scene.materials, u, any_glossy=settings.any_glossy,
-                          any_refractive=settings.any_refractive,
-                          depth_quirk=settings.depth_quirk)
+        return bsdf.shade_lanes(state.origin, state.direction, state.color,
+                                state.remaining_bounces, t, normal, mat,
+                                scene.materials, irng(it), 0, state.pixel,
+                                any_glossy=settings.any_glossy,
+                                any_refractive=settings.any_refractive,
+                                depth_quirk=settings.depth_quirk)
 
     _, _, color, rb = f_shade(1)
     img = wavefront.zero_accum(settings, dev)

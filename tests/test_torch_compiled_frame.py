@@ -390,6 +390,9 @@ def test_port_launches_reads_the_kernels_by_name():
         _evt("(anonymous namespace)::brute_kernel(BruteArgs)", 1.0, 1),
         _evt("(anonymous namespace)::pt_analytic_hit(int const*, int)", 1.0,
              6),
+        _evt("void (anonymous namespace)::pt_shade_lanes<true, false, "
+             "false, false, false>((anonymous namespace)::ShadeArgs)", 1.0,
+             7),
         _evt("void cub::DeviceScanKernel<Policy>(int*)", 1.0, 3),
         _evt("void at::native::tensor_kernel_scan_innermost_dim<float>()",
              1.0, 3),
@@ -398,7 +401,7 @@ def test_port_launches_reads_the_kernels_by_name():
     ]
     assert port_launches(events, "cuda") == {
         "cull": 12, "stream": 8, "packet": 4, "wide_push": 2,
-        "wide_mask": 0, "brute": 1, "scan": 0, "analytic": 6}
+        "wide_mask": 0, "brute": 1, "scan": 0, "analytic": 6, "shade": 7}
     assert sorted(k for _, k in PORT_KERNELS) == sorted(kernels.LAUNCHES)
 
 
