@@ -12,11 +12,12 @@ Vec3.normalize's clamp) are kept.
 `shade_lanes` is the engine's entry: a bounce's draws and shade. On CPU
 tensors it draws (ops/rng.py) and runs `shade`; on CUDA tensors it launches
 csrc/shade.cu (ops/kernels.py `shade`), which draws in the kernel and gives
-`shade`'s bits, through an autograd.Function whose backward runs `shade`
-again on the saved inputs, so that gradients are the plain twin's.
+`shade`'s bits, with the plain draw's and `shade`'s gradients
+(ops/kernels.py `with_twin`).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -276,78 +277,6 @@ def shade(origin: Vec3, direction: Vec3, color: Vec3,
     return new_origin, new_direction, new_color, new_rb
 
 
-def _unpack(opts: dict, args):
-    """_ShadeKernel's inputs as (origin, direction, color, rb, t, normal,
-    mat_id, materials, key, pixel, planes): the key and pixel ids of the
-    hash (the key a 0-d tensor, or the host int in opts) or the uniform
-    planes, the others None."""
-    ox, oy, oz, dx, dy, dz, cx, cy, cz, rb, t, nx, ny, nz, mat = args[:15]
-    mats = MaterialArrays(args[15], args[16], None, *args[17:21])
-    draws = args[21:]
-    key = pixel = planes = None
-    if opts["hash"]:
-        key, pixel = draws
-        if key is None:
-            key = opts["key"]
-    else:
-        planes = draws
-    return (Vec3(ox, oy, oz), Vec3(dx, dy, dz), Vec3(cx, cy, cz), rb, t,
-            Vec3(nx, ny, nz), mat, mats, key, pixel, planes)
-
-
-class _ShadeKernel(torch.autograd.Function):
-    """csrc/shade.cu as an autograd.Function. Forward: one launch. Backward:
-    `shade` run again on the saved inputs under autograd, with the same
-    uniforms (drawn again from the saved key and pixel ids, or the saved
-    planes), and its gradients returned. The inputs after `opts` are
-    origin, direction, color (3 planes each), remaining_bounces, t, normal
-    (3), mat_id, the 6 material tables shade reads, then the key (a 0-d
-    tensor, or None for opts["key"]) and pixel ids, or the uniform
-    planes."""
-
-    @staticmethod
-    def forward(ctx, opts, *args):
-        o, d, c, rb, t, n, mat, mats, key, pixel, planes = _unpack(opts,
-                                                                   args)
-        ctx.opts = opts
-        ctx.save_for_backward(*args)
-        return kernels.shade(o, d, c, rb, t, n, mat, mats, key, pixel,
-                             planes, any_glossy=opts["any_glossy"],
-                             any_refractive=opts["any_refractive"],
-                             rr=opts["rr_start"] > 0,
-                             rr_on=0 < opts["rr_start"] <= opts["depth"],
-                             depth_quirk=opts["depth_quirk"])
-
-    @staticmethod
-    def backward(ctx, *grads):
-        opts = ctx.opts
-        saved = ctx.saved_tensors
-        want = [k for k in range(len(saved)) if ctx.needs_input_grad[k + 1]]
-        with torch.enable_grad():
-            xs = list(saved)
-            for k in want:
-                xs[k] = saved[k].detach().requires_grad_(True)
-            o, d, c, rb, t, n, mat, mats, key, pixel, u = _unpack(opts, xs)
-            if key is not None:
-                u = rng.fast_uniforms_perlane(
-                    rng._pixel_mix(key, pixel), 5 if opts["rr_start"] else 4)
-            outs = shade(o, d, c, rb, t, n, mat, mats, u,
-                         any_glossy=opts["any_glossy"],
-                         any_refractive=opts["any_refractive"],
-                         depth_quirk=opts["depth_quirk"],
-                         rr_depth=opts["depth"], rr_start=opts["rr_start"])
-            pairs = [(y, g) for y, g in zip((*outs[0], *outs[1], *outs[2]),
-                                            grads)
-                     if y.requires_grad]
-            got = torch.autograd.grad(
-                [y for y, _ in pairs], [xs[k] for k in want],
-                [g for _, g in pairs], allow_unused=True) if pairs else ()
-        result = [None] * len(saved)
-        for k, g in zip(want, got):
-            result[k] = g
-        return (None, *result)
-
-
 def shade_lanes(origin: Vec3, direction: Vec3, color: Vec3,
                 remaining_bounces: torch.Tensor, t: torch.Tensor,
                 normal: Vec3, mat_id: torch.Tensor,
@@ -362,8 +291,8 @@ def shade_lanes(origin: Vec3, direction: Vec3, color: Vec3,
     depth. CPU tensors: that draw and `shade`. CUDA tensors: one launch of
     csrc/shade.cu, which draws the fast hash itself from the depth's key
     (irng.depth_key) and the pixel ids (irng.pixels) or reads the threefry
-    planes the engine draws, through `_ShadeKernel` (the plain twin's
-    gradients)."""
+    planes the engine draws, with the gradients of the same draw and
+    `shade` (kernels.with_twin)."""
     m = 5 if rr_start else 4
     if origin.x.device.type != "cuda":
         u = irng.uniforms(depth, lane, m, salt=salt)
@@ -371,21 +300,47 @@ def shade_lanes(origin: Vec3, direction: Vec3, color: Vec3,
                      mat_id, materials, u, any_glossy=any_glossy,
                      any_refractive=any_refractive, depth_quirk=depth_quirk,
                      rr_depth=depth, rr_start=rr_start)
-    opts = {"hash": irng.fast, "key": None, "depth": depth,
-            "rr_start": rr_start, "any_glossy": any_glossy,
-            "any_refractive": any_refractive, "depth_quirk": depth_quirk}
+    host_key = None
     if irng.fast:
         key = irng.depth_key(depth)
         if not isinstance(key, torch.Tensor):
-            opts["key"], key = key, None
+            host_key, key = key, None
         draws = (key, irng.pixels(lane).to(torch.int64).contiguous())
     else:
         draws = tuple(p.contiguous()
                       for p in irng.uniforms(depth, lane, m, salt=salt))
-    out = _ShadeKernel.apply(
-        opts, *(x.contiguous() for x in (*origin, *direction, *color)),
+
+    def unpack(xs):
+        """The inputs below as kernels.shade's first 11 arguments."""
+        mats = dataclasses.replace(
+            materials, **dict(zip(kernels.SHADE_TABLES, xs[15:21])))
+        lanes = (Vec3(*xs[0:3]), Vec3(*xs[3:6]), Vec3(*xs[6:9]), xs[9],
+                 xs[10], Vec3(*xs[11:14]), xs[14], mats)
+        if irng.fast:
+            return (*lanes, host_key if xs[21] is None else xs[21], xs[22],
+                    None)
+        return (*lanes, None, None, xs[21:])
+
+    def kernel(*xs):
+        return kernels.shade(*unpack(xs), any_glossy=any_glossy,
+                             any_refractive=any_refractive, rr=rr_start > 0,
+                             rr_on=0 < rr_start <= depth,
+                             depth_quirk=depth_quirk)
+
+    def plain(*xs):
+        *lanes, key, pixel, u = unpack(xs)
+        if u is None:
+            u = rng.fast_uniforms_perlane(rng._pixel_mix(key, pixel), m)
+        o, d, c, rb = shade(*lanes, u, any_glossy=any_glossy,
+                            any_refractive=any_refractive,
+                            depth_quirk=depth_quirk, rr_depth=depth,
+                            rr_start=rr_start)
+        return (*o, *d, *c, rb)
+
+    out = kernels.with_twin(
+        kernel, plain,
+        *(x.contiguous() for x in (*origin, *direction, *color)),
         remaining_bounces.contiguous(), t.contiguous(),
         *(x.contiguous() for x in normal), mat_id.to(torch.int32).contiguous(),
-        materials.color, materials.specular_color, materials.has_reflective,
-        materials.has_refractive, materials.ior, materials.emittance, *draws)
+        *(getattr(materials, f) for f in kernels.SHADE_TABLES), *draws)
     return Vec3(*out[0:3]), Vec3(*out[3:6]), Vec3(*out[6:9]), out[9]

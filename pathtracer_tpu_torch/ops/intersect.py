@@ -4,7 +4,7 @@ The port of pathtracer_tpu/ops/intersect.py (reference src/intersections.cu):
 the analytic box and sphere tests, the slab test, and the scene-level closest
 hit `intersect_scene`: its boxes and spheres by one launch of
 csrc/analytic.cu on CUDA (`analytic_hit`; `analytic_plain`, the plain twin,
-on the CPU and wherever autograd records), then its mesh intersectors, named
+on the CPU and for the gradients), then its mesh intersectors, named
 as in the JAX package: "binned" (ops/binned.py, the default for mesh
 scenes), "pallas" (the packet walk alone, ops/bvh_packet.py), "sorted" (the
 packet walk over coherence-sorted chunks), "wide" / "wide_nosort" (the
@@ -15,12 +15,13 @@ world-ray parameter; t <= 0 encodes a miss.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Tuple
 
 import torch
 
 from ..scene.types import MESH, SPHERE, SceneArrays
-from ..utils import spans
 from ..utils.vec import Vec3, mat4_apply
 from . import kernels
 
@@ -304,34 +305,35 @@ def analytic_plain(scene: SceneArrays, geom_types: Tuple[int, ...],
     return best
 
 
-def analytic_route(device_type: str, records_grad: bool) -> str:
-    """How intersect_scene computes the analytic closest hit: "plain"
-    (analytic_plain) for CPU tensors; on CUDA, "grad" (analytic_plain, so
-    that autograd records it) where autograd records through the rays or the
-    geom transforms, else "kernel" (one launch of csrc/analytic.cu)."""
-    if device_type != "cuda":
-        return "plain"
-    return "grad" if records_grad else "kernel"
+def analytic_twin(scene: SceneArrays, geom_types: Tuple[int, ...],
+                  inverse_transform, inv_transpose, ox, oy, oz, dx, dy, dz):
+    """analytic_plain with the geom tables' transforms `inverse_transform`
+    and `inv_transpose`, on ray planes: kernels.analytic's outputs (t, nx,
+    ny, nz, material_id, any_hit)."""
+    geoms = dataclasses.replace(scene.geoms,
+                                inverse_transform=inverse_transform,
+                                inv_transpose=inv_transpose)
+    t, nrm, mat, hit = analytic_plain(dataclasses.replace(scene, geoms=geoms),
+                                      geom_types, Vec3(ox, oy, oz),
+                                      Vec3(dx, dy, dz))
+    return t, *nrm, mat, hit
 
 
 def analytic_hit(scene: SceneArrays, geom_types: Tuple[int, ...],
                  origin: Vec3, direction: Vec3):
-    """analytic_plain's result by the route analytic_route picks from the
-    inputs; a CUDA call that takes the plain expression for autograd is
-    counted (spans counter `analytic_grad`)."""
+    """analytic_plain's result: on CPU tensors analytic_plain itself; on
+    CUDA tensors one launch of csrc/analytic.cu, with analytic_twin's
+    gradients in the rays and the geom transforms (kernels.with_twin)."""
+    if origin.x.device.type != "cuda":
+        return analytic_plain(scene, geom_types, origin, direction)
     g = scene.geoms
-    records = torch.is_grad_enabled() and any(
-        x.requires_grad for x in (*origin, *direction, g.inverse_transform,
-                                  g.inv_transpose))
-    route = analytic_route(origin.x.device.type, records)
-    if route == "kernel":
-        t, nx, ny, nz, mat, hit = kernels.analytic(
-            g, *(c.contiguous() for c in origin),
-            *(c.contiguous() for c in direction))
-        return t, Vec3(nx, ny, nz), mat, hit
-    if route == "grad":
-        spans.count("analytic_grad")
-    return analytic_plain(scene, geom_types, origin, direction)
+    t, nx, ny, nz, mat, hit = kernels.with_twin(
+        # inv and invt are g's own transforms, which the wrapper reads
+        lambda inv, invt, *rays: kernels.analytic(g, *rays),
+        functools.partial(analytic_twin, scene, geom_types),
+        g.inverse_transform, g.inv_transpose,
+        *(c.contiguous() for c in (*origin, *direction)))
+    return t, Vec3(nx, ny, nz), mat, hit
 
 
 def intersect_scene(scene: SceneArrays, geom_types: Tuple[int, ...],
@@ -341,8 +343,8 @@ def intersect_scene(scene: SceneArrays, geom_types: Tuple[int, ...],
     """Closest hit over all geoms (computeIntersectionsNaive,
     pathtrace.cu:441-522).
 
-    Analytic geoms run first (`analytic_hit`: one kernel launch on CUDA
-    unless autograd records); their closest hit is the mesh intersector's
+    Analytic geoms run first (`analytic_hit`: one kernel launch on CUDA);
+    their closest hit is the mesh intersector's
     pruning bound `t_bound`, exactly as in the JAX package. `bvh_impl` is
     one of BVH_IMPLS (dispatch of intersect.py:394-457): "binned", "wide",
     "wide_nosort" and "brute" make one pass over all meshes ("brute"

@@ -28,15 +28,19 @@ the compiled frame (engine/wavefront.py) takes the counts its capture added
 (`restore_counts`), and adds them again on every replay (`add_counts`), so
 the counts say what ran.
 
-No kernel has a backward of its own. Shade's is a recompute: ops/bsdf.py
-`shade_lanes` launches it through an autograd.Function whose backward runs
-the plain twin (ops/bsdf.py `shade`) again on the saved inputs and returns
-its gradients. The others need no autograd.Function: as the Pallas kernels
-have no AD rule in the JAX package, the mesh intersectors that launch them
-return their hits as constants (ops/intersect.py `_constant`), the
-analytic closest hit runs its plain version wherever autograd records
-through the rays or the geom tables (ops/intersect.py `analytic_route`),
-and the scan only reorders lanes on the forward-only engine modes.
+`KERNELS` is the one table of the port's launches: SOURCES, the entry
+points' argument types, LAUNCHES, and the names and kinds that
+utils/profiling.py reads the device kernels by are built from it. A new
+kernel is its source, one entry there and its wrapper.
+
+No kernel has a backward of its own. `with_twin` gives a launch the
+gradients of its plain twin: the kernel runs forward, the backward runs
+the twin again on the saved inputs (ops/bsdf.py `shade_lanes` and
+ops/intersect.py `analytic_hit`). The others need none: as the Pallas
+kernels have no AD rule in the JAX package, the mesh intersectors that
+launch them return their hits as constants (ops/intersect.py
+`_constant`), and the scan only reorders lanes on the forward-only engine
+modes.
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ import os
 import shutil
 import subprocess
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -53,60 +58,83 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 REPO_ROOT = os.path.dirname(os.path.dirname(CSRC))
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "torch_kernels")
-SOURCES = ("cull.cu", "stream.cu", "packet.cu", "wide.cu", "brute.cu",
-           "scan.cu", "analytic.cu", "shade.cu")
 HEADERS = ("common.cuh",)
 # -fmad=false and no fast math: each kernel matches its plain PyTorch version
 # bit for bit (see csrc/common.cuh)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"cull": 0, "stream": 0, "packet": 0, "wide_push": 0,
-            "wide_mask": 0, "brute": 0, "scan": 0, "analytic": 0,
-            "shade": 0}
-FORMS: dict = {}
-
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = {
+
+
+class Kernel(NamedTuple):
+    """One launch of the port: its LAUNCHES key `name` (the C entry point
+    pt_<name>), its source in csrc/, the entry's ctypes arguments, the
+    device kernel it runs once a launch (by the name the profiler shows)
+    and that kernel's kind (utils/profiling.py KINDS)."""
+
+    name: str
+    source: str
+    argtypes: list
+    device_kernel: str
+    kind: str
+
+
+KERNELS = (
     # device, tables, table rows, 10 ray planes, 2 outputs of k planes, n,
     # k, stream
-    "pt_cull": [_I, _P, _P, _I] + [_P] * 10 + [_P, _P, _I, _I, _P],
+    Kernel("cull", "cull.cu",
+           [_I, _P, _P, _I] + [_P] * 10 + [_P, _P, _I, _I, _P],
+           "cull_kernel", "cull kernel"),
     # device, treelet_i, n_treelets, tris, tri rows, max_rows, chunk table
     # (or null), uv, min_support, 8 ray planes, 5 outputs, inc (or null), n,
     # stream
-    "pt_stream": [_I, _P, _I, _P, _I, _I, _P, _I, _I] + [_P] * 8 + [_P] * 5
-                 + [_P, _I, _P],
+    Kernel("stream", "stream.cu",
+           [_I, _P, _I, _P, _I, _I, _P, _I, _I] + [_P] * 8 + [_P] * 5
+           + [_P, _I, _P], "stream_kernel", "stream kernel"),
     # device, nodes_f, nodes_i, n_nodes, tris, root, 8 ray planes,
     # 5 outputs, scratch, smem_nodes, n, stream
-    "pt_packet": [_I, _P, _P, _I, _P, _I] + [_P] * 8 + [_P] * 5
-                 + [_P, _I, _I, _P],
+    Kernel("packet", "packet.cu",
+           [_I, _P, _P, _I, _P, _I] + [_P] * 8 + [_P] * 5 + [_P, _I, _I, _P],
+           "packet_kernel_walk", "packet kernel"),
     # device, nodes8_c, n_wide, tris8, n_groups, root, 8 ray planes, cull,
     # 5 outputs, scratch, n, stream
-    "pt_wide_push": [_I, _P, _I, _P, _I, _P] + [_P] * 8 + [_I] + [_P] * 5
-                    + [_P, _I, _P],
+    Kernel("wide_push", "wide.cu",
+           [_I, _P, _I, _P, _I, _P] + [_P] * 8 + [_I] + [_P] * 5
+           + [_P, _I, _P], "wide_push_kernel", "wide push kernel"),
     # the same without cull
-    "pt_wide_mask": [_I, _P, _I, _P, _I, _P] + [_P] * 8 + [_P] * 5
-                    + [_P, _I, _P],
-    # mask, cull: a walk block's dynamic shared memory in bytes
-    "pt_wide_smem": [_I, _I],
+    Kernel("wide_mask", "wide.cu",
+           [_I, _P, _I, _P, _I, _P] + [_P] * 8 + [_P] * 5 + [_P, _I, _P],
+           "wide_mask_kernel", "wide mask kernel"),
     # device, compact table, attrs, n_tris, 6 ray planes, 5 outputs, n,
     # stream
-    "pt_brute": [_I, _P, _P, _I] + [_P] * 6 + [_P] * 5 + [_I, _P],
+    Kernel("brute", "brute.cu",
+           [_I, _P, _P, _I] + [_P] * 6 + [_P] * 5 + [_I, _P],
+           "brute_kernel", "brute kernel"),
     # device, x, out, scratch, capacity, n, is_float, epoch, stream
-    "pt_scan": [_I, _P, _P, _P, ctypes.c_longlong, _I, _I, ctypes.c_uint,
-                _P],
+    Kernel("scan", "scan.cu",
+           [_I, _P, _P, _P, ctypes.c_longlong, _I, _I, ctypes.c_uint, _P],
+           "scan_kernel", "scan kernel"),
     # device, gtype, material_id, inverse_transform, inv_transpose, n_geoms,
     # 6 ray planes, 6 outputs, n, stream
-    "pt_analytic": [_I, _P, _P, _P, _P, _I] + [_P] * 6 + [_P] * 6
-                   + [_I, _P],
+    Kernel("analytic", "analytic.cu",
+           [_I, _P, _P, _P, _P, _I] + [_P] * 6 + [_P] * 6 + [_I, _P],
+           "pt_analytic_hit", "analytic hit kernel"),
     # device, flags, 6 material tables, n_mats, 9 ray planes, rb, t,
     # 3 normal planes, mat, key (device, or null) and key (host), pixel,
     # 5 uniform planes, rr_on, 10 outputs, n, stream
-    "pt_shade": [_I, _I] + [_P] * 6 + [_I] + [_P] * 9 + [_P] * 6
-                + [_P, ctypes.c_uint, _P] + [_P] * 5 + [_I] + [_P] * 10
-                + [_I, _P],
-}
+    Kernel("shade", "shade.cu",
+           [_I, _I] + [_P] * 6 + [_I] + [_P] * 9 + [_P] * 6
+           + [_P, ctypes.c_uint, _P] + [_P] * 5 + [_I] + [_P] * 10 + [_I, _P],
+           "pt_shade_lanes", "shade kernel"),
+)
+SOURCES = tuple(dict.fromkeys(k.source for k in KERNELS))
+LAUNCHES = dict.fromkeys((k.name for k in KERNELS), 0)
+FORMS: dict = {}
+_ARGTYPES = {**{"pt_" + k.name: k.argtypes for k in KERNELS},
+             # mask, cull: a walk block's dynamic shared memory in bytes
+             "pt_wide_smem": [_I, _I]}
 
 _lib = None
 
@@ -273,6 +301,47 @@ def add_counts(launches: dict, forms: dict) -> None:
         FORMS[k] = FORMS.get(k, 0) + v
 
 
+class _WithTwin(torch.autograd.Function):
+    """Forward: the kernel. Backward: the plain twin run again on the saved
+    inputs under autograd, and its gradients from the outputs that got one
+    (an unused output's zeros would run its backward for nothing, and
+    0 * inf there would give NaN)."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, *inputs):
+        ctx.plain = plain
+        ctx.save_for_backward(*inputs)
+        ctx.set_materialize_grads(False)
+        return kernel(*inputs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        saved = ctx.saved_tensors
+        want = [k for k in range(len(saved)) if ctx.needs_input_grad[k + 2]]
+        xs = list(saved)
+        for k in want:
+            xs[k] = saved[k].detach().requires_grad_(True)
+        with torch.enable_grad():
+            pairs = [(y, g) for y, g in zip(ctx.plain(*xs), grads)
+                     if g is not None and y.requires_grad]
+            got = torch.autograd.grad(
+                [y for y, _ in pairs], [xs[k] for k in want],
+                [g for _, g in pairs], allow_unused=True) if pairs else ()
+        result = [None] * len(saved)
+        for k, g in zip(want, got):
+            result[k] = g
+        return (None, None, *result)
+
+
+def with_twin(kernel, plain, *inputs):
+    """kernel(*inputs), a tuple of tensors, with the gradients of its plain
+    twin: plain(*inputs) gives the same outputs in autograd-recorded
+    PyTorch, and the backward runs it again on the inputs. `inputs` are
+    tensors or None; settings that are not tensors travel in the two
+    callables. Integer and bool outputs carry no gradient."""
+    return _WithTwin.apply(kernel, plain, *inputs)
+
+
 def hit_outputs(n: int, device: torch.device):
     """Empty (t, nx, ny, nz f32, mat i32) planes of n lanes, the outputs of
     every closest-hit kernel."""
@@ -322,6 +391,9 @@ def analytic(geoms, ox, oy, oz, dx, dy, dz):
 # csrc/shade.cu stages the material table, 10 floats a material, in a block's
 # shared memory, within the 48 KiB a launch may ask for without opting in
 SHADE_MAX_MATERIALS = 48 * 1024 // 40
+# the material tables csrc/shade.cu reads, in its entry's order
+SHADE_TABLES = ("color", "specular_color", "has_reflective",
+                "has_refractive", "ior", "emittance")
 # csrc/shade.cu's template flags
 SHADE_HASH, SHADE_GLOSSY, SHADE_REFRACTIVE, SHADE_RR, SHADE_QUIRK = (
     1, 2, 4, 8, 16)
@@ -352,9 +424,7 @@ def shade(origin, direction, color, remaining_bounces, t, normal, mat_id,
     if not 0 < m <= SHADE_MAX_MATERIALS:
         raise ValueError(f"shade: {m} materials, the kernel stages 1 to "
                          f"{SHADE_MAX_MATERIALS}")
-    tables = (materials.color, materials.specular_color,
-              materials.has_reflective, materials.has_refractive,
-              materials.ior, materials.emittance)
+    tables = tuple(getattr(materials, f) for f in SHADE_TABLES)
     got = check("shade", m, cols=3, color_f32=tables[0], spec_f32=tables[1])
     got2 = check("shade", m, cols=1,
                  **{f"{k}_f32": v.view(m, 1) for k, v in

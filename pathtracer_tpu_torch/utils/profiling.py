@@ -38,9 +38,7 @@ these measurements;
 the host ms of the compiled frame's calls, split into its spans
 (`frame_host`: pt_frame.key, .copy, .launch and the call's self time);
 the graphs captured, dropped past the cache's budget and cached, with
-their pools' bytes (`graph_cache`); and the analytic closest hit's calls
-on the card, kernel launches against plain calls under autograd
-(`analytic_calls`).
+their pools' bytes (`graph_cache`).
 
 It runs on the CUDA device unless `--device cpu` asks for the CPU, where
 there is no device to trace: the device fields are then None.
@@ -97,18 +95,13 @@ STAGES = (
     (bsdf, "shade", "shade.plain"),
 )
 
-# device kernel name fragment -> kind, first match wins
+# device kernel name fragment -> kind, first match wins: the port's kernels
+# (ops/kernels.py KERNELS), the compactions their walks run beside them,
+# then the torch op families
 KINDS = (
-    ("cull_kernel", "cull kernel"),
-    ("stream_kernel", "stream kernel"),
-    ("packet_kernel", "packet kernel"),
-    ("scan_kernel", "scan kernel"),
+    *((k.device_kernel, k.kind) for k in kernels.KERNELS),
     ("wide_compact_kernel", "wide compaction kernel"),
-    ("wide_push_kernel", "wide push kernel"),
-    ("wide_mask_kernel", "wide mask kernel"),
-    ("brute_kernel", "brute kernel"),
-    ("analytic_hit", "analytic hit kernel"),
-    ("shade_lanes", "shade kernel"),
+    ("packet_kernel", "packet kernel"),
     ("memcpy", "memcpy/memset"),
     ("memset", "memcpy/memset"),
     ("sort", "sorts"),
@@ -154,13 +147,7 @@ def kernel_kind(name: str) -> str:
 # the device kernel that each counted launch of kernels.LAUNCHES runs once,
 # by its name (the packet and wide walks' compactions and the deferring
 # stream's support sort run beside it)
-PORT_KERNELS = (("cull_kernel", "cull"), ("stream_kernel", "stream"),
-                ("packet_kernel_walk", "packet"),
-                ("wide_push_kernel", "wide_push"),
-                ("wide_mask_kernel", "wide_mask"),
-                ("brute_kernel", "brute"), ("scan_kernel", "scan"),
-                ("pt_analytic_hit", "analytic"),
-                ("pt_shade_lanes", "shade"))
+PORT_KERNELS = tuple((k.device_kernel, k.name) for k in kernels.KERNELS)
 _PORT_NAME = re.compile(r"(?<![A-Za-z0-9_])(" + "|".join(
     name for name, _ in PORT_KERNELS) + r")(?![A-Za-z0-9_])")
 
@@ -347,17 +334,6 @@ def graph_cache() -> dict:
             "pool_bytes": sum(f.pool_bytes for f in frames)}
 
 
-def analytic_calls(launched: int) -> dict:
-    """The analytic closest hit's calls on the card: `launched` kernel
-    launches, the calls that took the plain expression because autograd
-    recorded (the span recorder's counter analytic_grad), and the kernel's
-    share of the two (None where there were none)."""
-    grad = spans.snapshot()["counters"].get("analytic_grad", 0)
-    total = launched + grad
-    return {"kernel": launched, "grad": grad,
-            "kernel_share": launched / total if total else None}
-
-
 def report(scene_file: str, device, iters: int = 3, seed: int = 0,
            overrides: dict | None = None, bvh: str | None = None,
            mode: str = "masked", tile: int = 16000,
@@ -368,7 +344,7 @@ def report(scene_file: str, device, iters: int = 3, seed: int = 0,
     binned.FALLBACK_IMPL), in engine mode `mode` (`tile`: the tiled mode's
     compact_tile); frame_ms and device_profile of the frame `frame`, and
     graph_stages, frame_host and graph_cache of their calls (the span
-    recorder starts afresh), and analytic_calls over all of them."""
+    recorder starts afresh)."""
     from ..scene.loader import load_scene
     fallback = fallback or binned.FALLBACK_IMPL
     scene, settings = load_scene(scene_file, device, overrides=overrides,
@@ -377,7 +353,6 @@ def report(scene_file: str, device, iters: int = 3, seed: int = 0,
     settings = mode_settings(settings, mode, tile)
     args = (scene, settings, iters, seed, mode)
     spans.reset()
-    launched = kernels.LAUNCHES["analytic"]
     with torch.inference_mode(), mock.patch.object(binned, "FALLBACK_IMPL",
                                                    fallback):
         return {
@@ -391,8 +366,6 @@ def report(scene_file: str, device, iters: int = 3, seed: int = 0,
             "frame_host": frame_host(),
             "graphs": graph_cache(),
             "stage_times": stage_times(*args),
-            "analytic": analytic_calls(kernels.LAUNCHES["analytic"]
-                                       - launched),
         }
 
 
@@ -554,13 +527,6 @@ def format_report(rep: dict) -> str:
                      f"{graphs['evictions']} dropped past the budget; "
                      f"{graphs['cached']} cached, "
                      f"{graphs['pool_bytes'] / 2**20:.1f} MiB of pool")
-    ana = rep.get("analytic")
-    if ana is not None:
-        share = ("none on the card" if ana["kernel_share"] is None
-                 else f"kernel share {100.0 * ana['kernel_share']:.1f}%")
-        lines.append(f"  analytic closest hit on the card: {ana['kernel']} "
-                     f"kernel launches, {ana['grad']} plain calls under "
-                     f"autograd ({share})")
     st = rep["stage_times"]
     lines.append(f"  synchronized stages (wall {st['wall_ms']:.2f} "
                  "ms/frame, inclusive):")

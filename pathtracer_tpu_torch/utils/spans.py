@@ -268,10 +268,8 @@ def snapshot() -> dict:
     start_s, end_s, parent id or None, call or None, traced]], "host_s":
     {span: [[seconds, traced]]} (the same spans by name), "device_ms":
     {top stage: [[ms an iteration, traced]]}, "counters": {name: value}}.
-    The counters: captures (frames captured), evictions (frames dropped
-    past the cache's budget) and analytic_grad (CUDA calls of the analytic
-    closest hit that ran the plain expression for autograd,
-    ops/intersect.py analytic_hit)."""
+    The counters: captures (frames captured) and evictions (frames
+    dropped past the cache's budget)."""
     return _REC.snapshot()
 
 

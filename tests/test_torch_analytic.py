@@ -5,19 +5,19 @@ so it also runs on a machine with a GPU and no JAX:
     python -m pytest --noconftest -p no:cacheprovider \
         tests/test_torch_analytic.py -m cuda
 
-On the CPU: the route intersect_scene takes (`analytic_route`), the plain
-twin against the inline loop it was moved from, the launch entries, and
-that the kernel's name is none of the benchmark's own kernels. The tests
+On the CPU: the plain twin against the inline loop it was moved from, the
+autograd bridge (ops/kernels.py with_twin) driven with the analytic hit's
+own inputs and twin, and that the kernel's name is none of the
+benchmark's own kernels. The tests
 marked `cuda` build the library and hold the kernel to the plain twin bit
 for bit on every output and lane (the pools of every bounce of a Cornell
 and an alien 800x800 iteration, and crafted rays), the compiled frame's
-images to the eager plain path's, and the launch count; they skip without
-a CUDA device.
+images to the eager plain path's, the launch count and the gradients under
+autograd; they skip without a CUDA device.
 """
 import dataclasses
 import json
 import os
-import re
 from unittest import mock
 
 import numpy as np
@@ -29,11 +29,11 @@ from pathtracer_tpu_torch import load_scene
 from pathtracer_tpu_torch.engine import wavefront
 from pathtracer_tpu_torch.ops import intersect, kernels
 from pathtracer_tpu_torch.ops.intersect import (analytic_plain,
-                                                analytic_route, box_intersect,
+                                                analytic_twin, box_intersect,
                                                 sphere_intersect)
 from pathtracer_tpu_torch.scene.fixtures import scene_path
 from pathtracer_tpu_torch.scene.types import MESH, SPHERE
-from pathtracer_tpu_torch.utils import profiling, spans
+from pathtracer_tpu_torch.utils import profiling
 from pathtracer_tpu_torch.utils.vec import Vec3
 
 torch.set_num_threads(2)
@@ -207,15 +207,6 @@ def _need_cuda():
 
 # -- CPU ---------------------------------------------------------------------
 
-@pytest.mark.parametrize("device_type,records,route", [
-    ("cpu", False, "plain"), ("cpu", True, "plain"),
-    ("cuda", True, "grad"), ("cuda", False, "kernel")])
-def test_analytic_route(device_type, records, route):
-    """CPU tensors take the plain twin; on CUDA, autograd recording takes the
-    plain expression and inference the kernel."""
-    assert analytic_route(device_type, records) == route
-
-
 @pytest.mark.parametrize("name", ["cornell", "teapot", "open_test_scene",
                                   "crafted"])
 def test_plain_twin_equals_the_old_inline_loop(name, tmp_path):
@@ -249,11 +240,10 @@ def test_crafted_ties_go_to_the_first_box(tmp_path):
 
 
 def test_intersect_scene_on_the_cpu_launches_nothing():
-    """CPU tensors, with autograd recording or not: the plain twin, no
-    launch and no count of the autograd route (that counts CUDA calls)."""
+    """CPU tensors, with autograd recording or not: the plain twin and no
+    launch."""
     scene, settings = load_scene(scene_path("cornell"), "cpu")
     o, d = crafted_rays(scene, 64, 1)
-    spans.reset()
     before = dict(kernels.LAUNCHES)
     origin = to_vec3(o, "cpu")
     direction = Vec3(*(c.requires_grad_(True) for c in to_vec3(d, "cpu")))
@@ -264,41 +254,60 @@ def test_intersect_scene_on_the_cpu_launches_nothing():
         intersect.intersect_scene(scene, settings.geom_types,
                                   to_vec3(o, "cpu"), to_vec3(d, "cpu"))
     assert kernels.LAUNCHES == before
-    assert "analytic_grad" not in spans.snapshot()["counters"]
     ref = old_inline_loop(scene, settings.geom_types, origin, direction)
     assert torch.equal(t, torch.where(ref[3], ref[0], -1.0))
     assert torch.equal(mat, ref[2])
 
 
-def test_the_autograd_route_is_counted_and_differentiable():
-    """The "grad" route runs the plain expression, which autograd records,
-    and counts the call; the operator's report prints the share."""
-    scene, settings = load_scene(scene_path("cornell"), "cpu")
-    o, d = random_rays(256, 2)
-    spans.reset()
-    origin = Vec3(*(c.requires_grad_(True) for c in to_vec3(o, "cpu")))
-    with mock.patch.object(intersect, "analytic_route",
-                           lambda device_type, records: "grad"):
-        t, nrm, mat = intersect.intersect_scene(
-            scene, settings.geom_types, origin, to_vec3(d, "cpu"))
-    assert spans.snapshot()["counters"]["analytic_grad"] == 1
-    (g,) = torch.autograd.grad(torch.where(t > 0, t, 0.0).sum(), origin.x)
-    assert bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
-    calls = profiling.analytic_calls(3)
-    assert calls == {"kernel": 3, "grad": 1, "kernel_share": 0.75}
-    spans.reset()
+def grad_inputs(scene, o, d, wrt):
+    """The analytic hit's inputs with autograd leaves where `wrt` says:
+    (inverse_transform, inv_transpose, 6 ray planes), the transforms fresh
+    copies of the scene's."""
+    g = scene.geoms
+    mats = [m.detach().clone() for m in (g.inverse_transform,
+                                         g.inv_transpose)]
+    rays = [torch.from_numpy(np.ascontiguousarray(p)) for p in (*o, *d)]
+    for x in (mats if wrt == "transforms" else rays):
+        x.requires_grad_(True)
+    return (*mats, *rays)
 
 
-def test_the_report_carries_the_analytic_calls():
-    rep = profiling.report(scene_path("cornell"), "cpu", iters=1,
-                           overrides={"RES": [16, 16], "DEPTH": 2})
-    assert rep["analytic"] == {"kernel": 0, "grad": 0, "kernel_share": None}
-    stages = rep["stage_times"]["stages"]
-    assert stages["intersect.analytic"]["calls"] == (
-        stages["intersect"]["calls"])
-    assert ("analytic closest hit on the card: 0 kernel launches, 0 plain "
-            "calls under autograd (none on the card)"
-            in profiling.format_report(rep))
+def weighted_loss(out, seed):
+    """A weighted sum of the hit's t (where it hits) and normal."""
+    t, nx, ny, nz, _, hit = out
+    w = torch.rand(4, t.shape[0], generator=torch.Generator().manual_seed(
+        seed)).to(t.device)
+    return (torch.where(hit, t, 0.0) * w[0] + nx * w[1] + ny * w[2]
+            + nz * w[3]).sum()
+
+
+@pytest.mark.parametrize("wrt", ["rays", "transforms"])
+@pytest.mark.parametrize("name", ["cornell", "crafted"])
+def test_the_bridge_gives_the_twins_gradients(name, wrt, tmp_path):
+    """kernels.with_twin with analytic_hit's inputs and twin, and the twin
+    under no_grad standing in for the kernel: the outputs and the
+    gradients in the rays or in the transforms equal analytic_twin's under
+    autograd bit for bit."""
+    path = (write_crafted_scene(tmp_path) if name == "crafted"
+            else scene_path(name))
+    scene, settings = load_scene(path, "cpu")
+    o, d = random_rays(512, 9)
+    twin = lambda *xs: analytic_twin(scene, settings.geom_types, *xs)
+    stand_in = torch.no_grad()(twin)
+    xs = grad_inputs(scene, o, d, wrt)
+    got = kernels.with_twin(stand_in, twin, *xs)
+    leaves = [x for x in xs if x.requires_grad]
+    g_got = torch.autograd.grad(weighted_loss(got, 3), leaves)
+    xs_ref = grad_inputs(scene, o, d, wrt)
+    ref = twin(*xs_ref)
+    g_ref = torch.autograd.grad(weighted_loss(ref, 3),
+                                [x for x in xs_ref if x.requires_grad])
+    same_bits((got[0], Vec3(*got[1:4]), *got[4:]),
+              (ref[0], Vec3(*ref[1:4]), *ref[4:]))
+    assert not got[4].requires_grad and not got[5].requires_grad
+    for a, b in zip(g_got, g_ref):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert sum(float(a.abs().sum()) for a in g_got) > 0
 
 
 def test_the_wrapper_refuses_cpu_tensors():
@@ -335,20 +344,6 @@ def test_the_kernel_is_no_mesh_or_own_kernel_of_the_benchmark():
         assert not is_mesh_kernel(name)
         assert not is_own_kernel(name)
     assert profiling.kernel_kind(DEVICE_NAME) == "analytic hit kernel"
-
-
-def test_the_launch_entries_are_there():
-    """SOURCES, _ARGTYPES and LAUNCHES hold the kernel, and the C entry
-    point takes as many arguments as its argtypes list."""
-    assert "analytic.cu" in kernels.SOURCES
-    assert "analytic" in kernels.LAUNCHES
-    with open(os.path.join(kernels.CSRC, "analytic.cu")) as f:
-        src = f.read()
-    assert re.search(r"__global__[^;{]*\bpt_analytic_hit\(", src)
-    sig = re.search(r'extern "C" int pt_analytic\(([^)]*)\)', src)
-    assert sig is not None
-    n_args = len(sig.group(1).split(","))
-    assert n_args == len(kernels._ARGTYPES["pt_analytic"])
 
 
 # -- CUDA --------------------------------------------------------------------
@@ -420,31 +415,41 @@ def test_kernel_matches_the_plain_twin_on_crafted_rays(name, tmp_path):
 
 
 @pytest.mark.cuda
-def test_autograd_on_the_card_takes_the_plain_expression():
-    """Rays that autograd records through run the plain expression (counted,
-    no launch) and carry a gradient; the same rays under inference launch
-    the kernel, with the same bits."""
+@pytest.mark.parametrize("wrt", ["rays", "transforms"])
+def test_autograd_on_the_card_launches_the_kernel(wrt):
+    """Under autograd on the card, analytic_hit launches the kernel once,
+    its outputs are the inference call's bits, and its gradients in the
+    rays or the geom transforms are analytic_plain's, bit for bit."""
     _need_cuda()
     scene, settings = load_scene(scene_path("cornell"), "cuda")
     o, d = random_rays(4096, 5)
-    spans.reset()
+
+    def run(hit_fn):
+        inv, invt, *rays = (x.cuda().detach().requires_grad_(x.requires_grad)
+                            for x in grad_inputs(scene, o, d, wrt))
+        geoms = dataclasses.replace(scene.geoms, inverse_transform=inv,
+                                    inv_transpose=invt)
+        out = hit_fn(dataclasses.replace(scene, geoms=geoms),
+                     settings.geom_types, Vec3(*rays[:3]), Vec3(*rays[3:]))
+        leaves = [x for x in (inv, invt, *rays) if x.requires_grad]
+        t, nrm, mat, hit = out
+        loss = weighted_loss((t, *nrm, mat, hit), 3)
+        return out, torch.autograd.grad(loss, leaves)
+
     before = kernels.LAUNCHES["analytic"]
-    origin = Vec3(*(c.requires_grad_(True) for c in to_vec3(o, "cuda")))
-    direction = to_vec3(d, "cuda")
-    got = intersect.analytic_hit(scene, settings.geom_types, origin,
-                                 direction)
-    assert kernels.LAUNCHES["analytic"] == before
-    assert spans.snapshot()["counters"]["analytic_grad"] == 1
-    (g,) = torch.autograd.grad(torch.where(got[3], got[0], 0.0).sum(),
-                               origin.x)
-    assert bool(torch.isfinite(g).all())
+    got, g_got = run(intersect.analytic_hit)
+    assert kernels.LAUNCHES["analytic"] == before + 1
+    ref, g_ref = run(analytic_plain)
+    assert kernels.LAUNCHES["analytic"] == before + 1
     with torch.inference_mode():
         inf = intersect.analytic_hit(scene, settings.geom_types,
-                                     to_vec3(o, "cuda"), direction)
-    assert kernels.LAUNCHES["analytic"] == before + 1
-    same_bits(inf, tuple(x.detach() if isinstance(x, torch.Tensor)
-                         else Vec3(*(c.detach() for c in x)) for x in got))
-    spans.reset()
+                                     to_vec3(o, "cuda"), to_vec3(d, "cuda"))
+    detached = tuple(x.detach() if isinstance(x, torch.Tensor)
+                     else Vec3(*(c.detach() for c in x)) for x in got)
+    same_bits(inf, detached)
+    for a, b in zip(g_got, g_ref):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert sum(float(a.abs().sum()) for a in g_got) > 0
 
 
 @pytest.mark.cuda
@@ -493,8 +498,7 @@ def test_compiled_frame_equals_the_eager_plain_path(name):
                                      1, iters, 0)
         assert kernels.LAUNCHES["analytic"] == settings.trace_depth * iters
         kernels.reset_counts()
-        with mock.patch.object(intersect, "analytic_route",
-                               lambda device_type, records: "plain"):
+        with mock.patch.object(intersect, "analytic_hit", analytic_plain):
             ref = wavefront.render_chunk_eager(
                 scene, settings, wavefront.zero_accum(settings, "cuda"), 1,
                 iters, 0, False)

@@ -11,6 +11,7 @@ there is no CUDA device.
 """
 import json
 import os
+import re
 from unittest import mock
 
 import numpy as np
@@ -22,6 +23,7 @@ from pathtracer_tpu_torch.ops import (binned, brute, bvh_packet, kernels,
                                       scan, wide)
 from pathtracer_tpu_torch.scene.fixtures import scene_path
 from pathtracer_tpu_torch.scene.types import pack_wide_nodes, pack_wide_tables
+from pathtracer_tpu_torch.utils import profiling
 from pathtracer_tpu_torch.utils.vec import Vec3
 from torch_wide_scenes import SCENES
 
@@ -323,6 +325,79 @@ def test_library_path_tracks_the_sources():
     for name in kernels.SOURCES:    # each notes the TPU kernel it replaces
         with open(f"{kernels.CSRC}/{name}") as f:
             assert "Replaces the TPU kernel" in f.read(), name
+
+
+@pytest.mark.parametrize("entry", kernels.KERNELS, ids=lambda k: k.name)
+def test_the_kernel_table_entry(entry):
+    """Each entry's source holds its device kernel and its C entry point,
+    which takes as many arguments as its argtypes list; the library builds
+    the source and loads the entry; LAUNCHES, the profiler's PORT_KERNELS
+    and KINDS read the kernel from the table."""
+    with open(os.path.join(kernels.CSRC, entry.source)) as f:
+        src = f.read()
+    assert re.search(rf"__global__[^;{{]*\b{entry.device_kernel}\(", src)
+    sig = re.search(rf'extern "C" int pt_{entry.name}\(([^)]*)\)', src)
+    assert sig is not None
+    assert len(sig.group(1).split(",")) == len(entry.argtypes)
+    assert kernels._ARGTYPES["pt_" + entry.name] is entry.argtypes
+    assert entry.source in kernels.SOURCES
+    assert kernels.LAUNCHES[entry.name] >= 0
+    assert dict(profiling.PORT_KERNELS)[entry.device_kernel] == entry.name
+    assert profiling.kernel_kind(entry.device_kernel) == entry.kind
+    assert profiling.kernel_kind(f"void {entry.device_kernel}<1>(A)") == (
+        entry.kind)
+
+
+def _twin(a, b, c=None):
+    """A stand-in's plain twin: two float outputs, then an int32 and a
+    bool one."""
+    y = a * b + (0.0 if c is None else c)
+    return y, torch.sin(a) * b, (a > 0).to(torch.int32), b > 0.5
+
+
+_stand_in = torch.no_grad()(_twin)
+
+
+@pytest.mark.parametrize("case", ["both", "one_and_none", "int_and_bool",
+                                  "no_grad"])
+def test_the_bridge_gives_the_twins_gradients(case):
+    """kernels.with_twin with a stand-in kernel: its outputs are the
+    kernel's; gradients equal the twin's under autograd for the inputs that
+    need them (None for the others, and a None input passes through);
+    integer and bool outputs carry no gradient; where no input needs a
+    gradient, nothing records and the twin never runs."""
+    gen = torch.Generator().manual_seed(4)
+    a, b = torch.randn(64, generator=gen), torch.rand(64, generator=gen)
+    c = None if case == "one_and_none" else torch.randn(64, generator=gen)
+    need = {"both": (a, b), "one_and_none": (a,), "int_and_bool": (b,),
+            "no_grad": ()}[case]
+    for x in need:
+        x.requires_grad_(True)
+    calls = []
+
+    def twin(*xs):
+        calls.append(1)
+        return _twin(*xs)
+
+    got = kernels.with_twin(_stand_in, twin, a, b, c)
+    ref = _twin(a, b, c)
+    for y, r in zip(got, ref):
+        assert torch.equal(y, r)
+    assert not got[2].requires_grad and not got[3].requires_grad
+    if not need:
+        assert not got[0].requires_grad and calls == []
+        return
+    w = torch.randn(64, generator=gen)
+    g_got = torch.autograd.grad((got[0] * w + got[1]).sum(), need,
+                                retain_graph=True)
+    g_ref = torch.autograd.grad((ref[0] * w + ref[1]).sum(), need)
+    assert calls == [1]
+    for x, y in zip(g_got, g_ref):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    if case == "int_and_bool":      # the int and bool outputs feed a loss
+        (g,) = torch.autograd.grad(
+            (got[0] * got[2] + got[3].float()).sum(), b)
+        assert torch.equal(g, a.detach() * got[2])
 
 
 @pytest.mark.cuda
