@@ -41,9 +41,9 @@ Phases, each fatal on failure:
   6. Cornell 800x800 d8: ms/frame; then counted as in phase 4 (`traced`):
      the analytic kernel (csrc/analytic.cu) and the shade kernel
      (csrc/shade.cu) must each launch once a bounce an iteration,
-     trace_depth times iterations, as the profiler saw them on the card by
-     name; those counts are the kernels' `launches` in the `kernels`
-     line;
+     trace_depth times iterations, and raygen (csrc/raygen.cu) once an
+     iteration, as the profiler saw them on the card by name; those counts
+     are the kernels' `launches` in the `kernels` line;
   7. the other mesh paths: teapot 800x800 d4 through bvh_impl "wide" (push
      and mask variants), "wide_nosort", "sorted", "brute" and "binned"
      with the 8-wide fallback, each timed untraced and then counted as in
@@ -207,7 +207,12 @@ Phases, each fatal on failure:
      time where it is longer), device ms (torch.profiler), plain ms and the
      bound (SH_LIVE_BYTES a lane with bounces left, SH_DEAD_BYTES a lane
      copied through, over the memory rate), per bounce and summed over the
-     iteration.
+     iteration; and the raygen kernel (csrc/raygen.cu) on the same two
+     iterations' raygen (recorded at the camera_paths call): one launch,
+     its nine outputs bit for bit against its plain twin (ops/camera.py
+     raygen_plain), the kernel's device name seen by the profiler; kernel
+     ms, device ms, plain ms and the bound (RG_LANE_BYTES a lane over the
+     memory rate).
 The second-to-last lines are one JSON object with every kernel's numbers and
 the card's name and power limit; the last line is the result object.
 Exits non-zero, printing no result, where torch sees no CUDA device.
@@ -268,6 +273,10 @@ OPS_AN_NORMAL = 110
 # writes those four alone
 SH_LIVE_BYTES = 108
 SH_DEAD_BYTES = 80
+# phase 31: bytes a lane of the raygen kernel with the fast RNG: it reads
+# nothing of its own and writes origin and direction (24 B), the
+# throughput's one (4 B), remaining_bounces (4 B) and its lane id (8 B)
+RG_LANE_BYTES = 40
 ANIMAL_LANES = 65536  # the plain version over every animal lane is too slow
 # the scan at ragged sizes (int32, bit for bit) beside the 640,000-lane mask
 RAGGED = (1, 31, 4095, 4097, 2 ** 24 + 3)
@@ -1761,15 +1770,17 @@ def analytic_phase(dev, launches: int) -> dict:
     return entry
 
 
-def shade_phase(dev, launches: int) -> dict:
-    """Phase 31 (the module docstring). Returns the kernel's report entry:
-    the first Cornell bounce's numbers, each scene's iteration summed, and
-    `launches`, the main path's count of phase 6; raises on any failure."""
+def shade_phase(dev, launches: int, camera_launches: int) -> tuple:
+    """Phase 31 (the module docstring). Returns the shade kernel's report
+    entry (the first Cornell bounce's numbers, each scene's iteration
+    summed) and the raygen kernel's (Cornell's numbers, each scene's), each
+    with `launches`, the main path's count of phase 6; raises on any
+    failure."""
     import torch
 
     from pathtracer_tpu_torch import load_scene
     from pathtracer_tpu_torch.engine import wavefront
-    from pathtracer_tpu_torch.ops import bsdf, kernels
+    from pathtracer_tpu_torch.ops import bsdf, camera, kernels
     from pathtracer_tpu_torch.utils.kernel_bench import cuda_ms, device_ms
     from pathtracer_tpu_torch.utils.vec import Vec3
 
@@ -1789,22 +1800,61 @@ def shade_phase(dev, launches: int) -> dict:
         return Vec3(*(c.clone() for c in a)) if isinstance(a, Vec3) else a
 
     t_phase = time.perf_counter()
-    entry = None
+    entry = rg_entry = None
     for label, path, depth in AN_SCENES:
         sc, st = load_scene(path, dev, overrides={"RES": [800, 800],
                                                   "DEPTH": depth})
-        calls = []
-        real = wavefront.shade_lanes
+        calls, raygen = [], []
+        real, real_raygen = wavefront.shade_lanes, wavefront.camera_paths
 
         def recording(*args, **kw):
             calls.append(([clone(a) for a in args], dict(kw)))
             return real(*args, **kw)
 
+        def recording_raygen(*args):
+            raygen.append(args)
+            return real_raygen(*args)
+
         with torch.inference_mode(), mock.patch.object(
-                wavefront, "shade_lanes", recording):
+                wavefront, "shade_lanes", recording), mock.patch.object(
+                wavefront, "camera_paths", recording_raygen):
             wavefront.render_chunk_eager(sc, st, wavefront.zero_accum(st, dev),
                                          1, 1, 0, False)
         torch.cuda.synchronize()
+        if len(raygen) != 1:
+            raise AssertionError(f"raygen {label}: {len(raygen)} calls "
+                                 "recorded, expected 1")
+        with torch.inference_mode():
+            name = f"raygen {label}"
+            kern = lambda: camera.camera_paths(*raygen[0])
+            twin = lambda: camera.raygen_plain(*raygen[0])
+            before = kernels.LAUNCHES["camera"]
+            got = kern()
+            if kernels.LAUNCHES["camera"] != before + 1:
+                raise AssertionError(f"{name}: not one launch")
+            ref = twin()
+            torch.cuda.synchronize()
+            compare(name, got, ref, range(7), (7, 8), range(7))
+            n = got[0].shape[0]
+            ms = cuda_ms(kern, reps=20)
+            dev_ms, by_name = device_ms(kern, reps=20)
+            if not any("pt_camera_paths" in k for k in by_name):
+                raise AssertionError(f"{name}: the profiler saw no "
+                                     f"pt_camera_paths in {by_name}")
+            plain_ms = cuda_ms(twin, reps=5, warmup=1)
+            bound_ms, _ = bound(RG_LANE_BYTES * n, 0)
+        log(f"{name} 800x800: {n} lanes, bit for bit; kernel {ms:.4f} ms "
+            f"(device {dev_ms:.4f}), plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms by bytes ({RG_LANE_BYTES * n})")
+        nums = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms}
+        if rg_entry is None:
+            rg_entry = {"name": "camera", "route": "cuda",
+                        "source": "csrc/raygen.cu",
+                        "replaces": "none (XLA fused the JAX raygen)",
+                        "launches": camera_launches, **nums,
+                        "bound_by": "bytes", "library_ms": None}
+        rg_entry[label] = nums
         if len(calls) != depth:
             raise AssertionError(f"shade {label}: {len(calls)} bounce pools "
                                  f"recorded, expected {depth}")
@@ -1852,9 +1902,9 @@ def shade_phase(dev, launches: int) -> dict:
             f"plain {sums['plain_ms']:.3f} ms, bound "
             f"{sums['bound_ms']:.4f} ms")
         entry[f"{label}_iteration"] = sums
-        del sc, calls
+        del sc, calls, raygen
     log(f"phase 31: {time.perf_counter() - t_phase:.1f} s")
-    return entry
+    return entry, rg_entry
 
 
 def main() -> int:
@@ -2236,6 +2286,10 @@ def main() -> int:
             raise AssertionError(f"cornell main path: {got} {name} "
                                  f"launches, expected {c_set.trace_depth} "
                                  f"bounces x {iters} iterations")
+    rg_launches = run["launches"]["camera"]
+    if rg_launches != iters:
+        raise AssertionError(f"cornell main path: {rg_launches} raygen "
+                             f"launches, expected {iters} iterations")
 
     # -- 7. the other mesh paths, teapot 800x800 d4 ---------------------------
     paths = [  # (label, bvh_impl, patches, kernels the path must launch)
@@ -2471,8 +2525,9 @@ def main() -> int:
     # -- 30. the analytic closest hit ----------------------------------------
     report["analytic"] = analytic_phase(dev, an_launches)
 
-    # -- 31. shade ----------------------------------------------------------
-    report["shade"] = shade_phase(dev, sh_launches)
+    # -- 31. shade and raygen ----------------------------------------------
+    report["shade"], report["camera"] = shade_phase(dev, sh_launches,
+                                                    rg_launches)
 
     # -- 32. results ----------------------------------------------------------
 

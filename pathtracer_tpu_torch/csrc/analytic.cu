@@ -51,12 +51,10 @@ constexpr int SPHERE = 0;  // scene/types.py SPHERE, CUBE, MESH
 constexpr int MESH = 2;
 // the plain version's Python constants as torch casts them to float32
 constexpr float CLAMP = static_cast<float>(1e-20);
-constexpr float LEN2_MIN = static_cast<float>(1e-30);
 constexpr float RADIUS2 = 0.25f;  // radius * radius, radius = 0.5
 
-struct V3 {
-  float x, y, z;
-};
+using pt::normalize;
+using pt::V3;
 
 // (m @ [v, w]).xyz for a row-major 4x4 matrix, rows 0-2 (utils/vec.py
 // mat4_apply).
@@ -66,13 +64,6 @@ __device__ __forceinline__ V3 apply(const float4* __restrict__ m, V3 v,
   return {r0.x * v.x + r0.y * v.y + r0.z * v.z + w * r0.w,
           r1.x * v.x + r1.y * v.y + r1.z * v.z + w * r1.w,
           r2.x * v.x + r2.y * v.y + r2.z * v.z + w * r2.w};
-}
-
-// Vec3.normalize
-__device__ __forceinline__ V3 normalize(V3 v) {
-  const float inv =
-      rsqrtf(pt::nan_max(v.x * v.x + v.y * v.y + v.z * v.z, LEN2_MIN));
-  return {v.x * inv, v.y * inv, v.z * inv};
 }
 
 // box_intersect on the object-space ray (qo, qd): t of the unit cube, -1 on

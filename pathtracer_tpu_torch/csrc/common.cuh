@@ -1,5 +1,6 @@
 // Shared device helpers of the mesh-intersection kernels (cull.cu,
-// stream.cu, packet.cu, wide.cu).
+// stream.cu, packet.cu, wide.cu), and the vector arithmetic of analytic.cu,
+// shade.cu and raygen.cu and the PCG draws of the last two.
 //
 // Every formula keeps the operation order of the JAX package's Pallas kernels
 // and of the plain PyTorch versions beside the wrappers. The library is built
@@ -211,6 +212,63 @@ __device__ __forceinline__ void append_active(bool keep, int i,
   if (lane == leader) base = atomicAdd(count, __popc(m));
   base = __shfl_sync(FULL, base, leader);
   if (keep) list[base + __popc(m & ((1u << lane) - 1))] = i;
+}
+
+// A float3 of the plain versions' Vec3, with its operations in Vec3's order
+// (utils/vec.py): dot as x*x' + y*y' + z*z' left to right.
+struct V3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ V3 add(V3 a, V3 b) {
+  return {a.x + b.x, a.y + b.y, a.z + b.z};
+}
+__device__ __forceinline__ V3 sub(V3 a, V3 b) {
+  return {a.x - b.x, a.y - b.y, a.z - b.z};
+}
+__device__ __forceinline__ V3 mul(V3 a, V3 b) {
+  return {a.x * b.x, a.y * b.y, a.z * b.z};
+}
+__device__ __forceinline__ V3 scale(V3 a, float s) {
+  return {a.x * s, a.y * s, a.z * s};
+}
+__device__ __forceinline__ float dot(V3 a, V3 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z;
+}
+// Vec3.normalize: v * rsqrt(clamp(|v|^2, min=1e-30)); torch.rsqrt is rsqrtf
+__device__ __forceinline__ V3 normalize(V3 v) {
+  return scale(v, rsqrtf(nan_max(dot(v, v), static_cast<float>(1e-30))));
+}
+
+// The fast RNG (ops/rng.py): a lane's state is pcg(key ^ pixel *
+// PIXEL_MUL) for the depth's key (IterationRng.depth_key), and draw j of a
+// state is the top 24 bits of pcg(state + j * GOLDEN) times 2^-24
+// (_pixel_mix, fast_uniforms_perlane), all in uint32 arithmetic.
+constexpr unsigned GOLDEN = 0x9E3779B9u;     // ops/rng.py GOLDEN
+constexpr unsigned PIXEL_MUL = 0xC2B2AE35u;  // ops/rng.py _pixel_mix
+constexpr float UNIT = 1.0f / 16777216.0f;   // 2^-24
+
+// ops/rng.py _pcg on a uint32 word
+__device__ __forceinline__ unsigned pcg(unsigned x) {
+  x = x * 747796405u + 2891336453u;
+  x = ((x >> ((x >> 28) + 4u)) ^ x) * 277803737u;
+  return (x >> 22) ^ x;
+}
+
+// The depth's key: read on the device where `key_dev` is set (a captured
+// graph draws each replay's iteration), else the host's value.
+__device__ __forceinline__ unsigned depth_key(const long long* key_dev,
+                                              unsigned key_host) {
+  return key_dev != nullptr ? static_cast<unsigned>(*key_dev) : key_host;
+}
+
+__device__ __forceinline__ unsigned pixel_state(unsigned key,
+                                                long long pixel) {
+  return pcg(key ^ (static_cast<unsigned>(pixel) * PIXEL_MUL));
+}
+
+__device__ __forceinline__ float hash_uniform(unsigned state, unsigned j) {
+  return static_cast<float>(pcg(state + j * GOLDEN) >> 8) * UNIT;
 }
 
 // Blocks of `kernel` that the card holds at once (SMs x blocks an SM holds

@@ -61,9 +61,6 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int MAT_FIELDS = 10;  // colour 3, specular 3, reflective,
                                 // refractive, ior, emittance
-constexpr unsigned GOLDEN = 0x9E3779B9u;     // ops/rng.py GOLDEN
-constexpr unsigned PIXEL_MUL = 0xC2B2AE35u;  // ops/rng.py _pixel_mix
-constexpr float UNIT = 1.0f / 16777216.0f;   // 2^-24
 // the plain twin's Python constants as torch casts them to float32
 constexpr float SCATTER_EPS = static_cast<float>(1e-3);
 constexpr float TWO_PI = static_cast<float>(
@@ -76,35 +73,19 @@ constexpr float LUMA_B = static_cast<float>(0.0722);
 constexpr float ROUGH_BIAS = static_cast<float>(0.2);
 constexpr float EPS6 = static_cast<float>(1e-6);
 constexpr float TIR_LEN2 = static_cast<float>(1e-16);
-constexpr float LEN2_MIN = static_cast<float>(1e-30);
 constexpr float RR_MIN = static_cast<float>(0.05);
 
-struct V3 {
-  float x, y, z;
-};
+using pt::add;
+using pt::dot;
+using pt::mul;
+using pt::normalize;
+using pt::scale;
+using pt::sub;
+using pt::V3;
 
-__device__ __forceinline__ V3 add(V3 a, V3 b) {
-  return {a.x + b.x, a.y + b.y, a.z + b.z};
-}
-__device__ __forceinline__ V3 sub(V3 a, V3 b) {
-  return {a.x - b.x, a.y - b.y, a.z - b.z};
-}
-__device__ __forceinline__ V3 mul(V3 a, V3 b) {
-  return {a.x * b.x, a.y * b.y, a.z * b.z};
-}
-__device__ __forceinline__ V3 scale(V3 a, float s) {
-  return {a.x * s, a.y * s, a.z * s};
-}
-__device__ __forceinline__ float dot(V3 a, V3 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z;
-}
 __device__ __forceinline__ V3 cross(V3 a, V3 b) {
   return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
           a.x * b.y - a.y * b.x};
-}
-// Vec3.normalize
-__device__ __forceinline__ V3 normalize(V3 v) {
-  return scale(v, rsqrtf(pt::nan_max(dot(v, v), LEN2_MIN)));
 }
 // ops/bsdf.py reflect
 __device__ __forceinline__ V3 reflect(V3 d, V3 n) {
@@ -119,13 +100,6 @@ __device__ __forceinline__ float surrogate(bool took_first, float p) {
   return (1.0f - p) / pt::nan_max(1.0f - p, EPS6);
 }
 
-// ops/rng.py _pcg on a uint32 word
-__device__ __forceinline__ unsigned pcg(unsigned x) {
-  x = x * 747796405u + 2891336453u;
-  x = ((x >> ((x >> 28) + 4u)) ^ x) * 277803737u;
-  return (x >> 22) ^ x;
-}
-
 // The lane's uniforms: draw j of the hash state, or plane j.
 template <bool FAST>
 struct Draws {
@@ -134,7 +108,7 @@ struct Draws {
   int lane;
   __device__ __forceinline__ float operator()(unsigned j) const {
     if (FAST) {
-      return static_cast<float>(pcg(state + j * GOLDEN) >> 8) * UNIT;
+      return pt::hash_uniform(state, j);
     }
     return planes[j][lane];
   }
@@ -249,11 +223,8 @@ __global__ void __launch_bounds__(THREADS) pt_shade_lanes(const ShadeArgs a) {
     } else {
       Draws<FAST> u{0u, a.planes, i};
       if (FAST) {
-        const unsigned key =
-            a.key_dev != nullptr ? static_cast<unsigned>(*a.key_dev)
-                                 : a.key_host;
-        const unsigned pix = static_cast<unsigned>(a.pixel[i]);
-        u.state = pcg(key ^ (pix * PIXEL_MUL));
+        u.state = pt::pixel_state(pt::depth_key(a.key_dev, a.key_host),
+                                  a.pixel[i]);
       }
       const V3 n{a.nx[i], a.ny[i], a.nz[i]};
       const V3 spec{s_spec[3 * mid], s_spec[3 * mid + 1],

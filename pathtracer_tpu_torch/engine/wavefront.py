@@ -76,7 +76,7 @@ import torch
 
 from ..ops import kernels, rng
 from ..ops.bsdf import shade_lanes
-from ..ops.camera import generate_camera_rays
+from ..ops.camera import camera_paths
 from ..ops.intersect import intersect_scene
 from ..ops.scan import (SEG, sort_by_key_multisort, sort_by_key_segmented,
                         tree_map)
@@ -107,30 +107,19 @@ def generate_paths(scene: SceneArrays, settings: RenderSettings,
                    pixel_offset: int = 0) -> PathState:
     """Camera raygen -> fresh path pool, one lane per pixel
     (pathtrace.cu:260-322). `n` lanes (default: the whole image) from
-    global lane `pixel_offset` on, for a shard's block; `irng` must carry
-    the same offset. `pixel` stays local (0..n-1), as in the JAX
-    package."""
+    global lane `pixel_offset` on, for a shard's block; on the fast RNG
+    `irng` must carry the same offset and the settings' pixel map.
+    `pixel` stays local (0..n-1), as in the JAX package. ops/camera.py
+    camera_paths: one launch of csrc/raygen.cu on a CUDA device."""
     if n is None:
         n = settings.pixel_count
-    dev = scene.device
     with spans.stage("pt_raygen"):
-        lanes = torch.arange(n, dtype=torch.int64, device=dev)
-        jitter = irng.normals(-1, lanes, 2) if settings.jitter else None
-        dof_u = irng.uniforms(-2, lanes, 2) if settings.dof else None
-        pixel_ids = settings.pixel_map()(lanes + pixel_offset if pixel_offset
-                                         else lanes)
-        origin, direction = generate_camera_rays(
-            scene.camera, settings.width, settings.height, jitter, dof_u,
-            pixel_idx=pixel_ids)
-        one = torch.ones(n, device=dev)
-        return PathState(
-            origin=origin,
-            direction=direction,
-            color=Vec3(one, one, one),
-            remaining_bounces=torch.full((n,), settings.trace_depth,
-                                         dtype=torch.int32, device=dev),
-            pixel=lanes,
-        )
+        ox, oy, oz, dx, dy, dz, one, rb, lane = camera_paths(
+            scene.camera, settings, n, pixel_offset, irng)
+        return PathState(origin=Vec3(ox, oy, oz),
+                         direction=Vec3(dx, dy, dz),
+                         color=Vec3(one, one, one), remaining_bounces=rb,
+                         pixel=lane)
 
 
 def bounce_step(scene: SceneArrays, settings: RenderSettings,

@@ -1,15 +1,20 @@
 """Camera ray generation: stochastic AA jitter + thin-lens depth of field.
 
 The port of pathtracer_tpu/ops/camera.py (reference pathtrace.cu:235-322),
-over the whole pixel pool in the Vec3 SoA layout.
+over the whole pixel pool in the Vec3 SoA layout. `camera_paths` is the
+engine's raygen: on CUDA tensors one launch of csrc/raygen.cu, bit for bit
+its plain twin `raygen_plain`, which CPU tensors run.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from ..scene.types import CameraArrays
+from ..scene.types import CameraArrays, PixelMap, RenderSettings
 from ..utils.math import PI
 from ..utils.vec import Vec3
+from . import kernels
 
 
 def pick_tile(width: int, height: int):
@@ -23,19 +28,7 @@ def pick_tile(width: int, height: int):
 def tile_pixel_map(width: int, height: int, tile_h: int, tile_w: int):
     """lane (tile-major) -> pixel index (row-major). Pure index math on
     ints, numpy arrays or tensors of non-negative lanes."""
-    tiles_x = width // tile_w
-    tsz = tile_h * tile_w
-
-    def f(lane):
-        t = lane // tsz
-        r = lane % tsz
-        ty = t // tiles_x
-        tx = t % tiles_x
-        py = ty * tile_h + r // tile_w
-        px = tx * tile_w + r % tile_w
-        return py * width + px
-
-    return f
+    return PixelMap((width, tile_h, tile_w))
 
 
 def concentric_sample_disk(u1: torch.Tensor, u2: torch.Tensor):
@@ -108,3 +101,63 @@ def generate_camera_rays(cam: CameraArrays, width: int, height: int,
 
     return origin, d
 
+
+def raygen_plain(cam: CameraArrays, settings: RenderSettings, n: int,
+                 pixel_offset: int, irng) -> tuple:
+    """The fresh path pool of `n` lanes from global lane `pixel_offset` on,
+    in plain PyTorch: the AA normals (depth -1) and lens uniforms (depth -2)
+    of `irng` (ops/rng.py IterationRng) where settings.jitter / dof, the
+    camera rays (generate_camera_rays) of pixel ids
+    settings.pixel_map()(lane + pixel_offset), throughput one,
+    settings.trace_depth bounces left. Returns (ox, oy, oz, dx, dy, dz, one,
+    remaining_bounces int32, lane int64)."""
+    dev = cam.position.device
+    lanes = torch.arange(n, dtype=torch.int64, device=dev)
+    jitter = irng.normals(-1, lanes, 2) if settings.jitter else None
+    dof_u = irng.uniforms(-2, lanes, 2) if settings.dof else None
+    pixel_ids = settings.pixel_map()(lanes + pixel_offset if pixel_offset
+                                     else lanes)
+    origin, direction = generate_camera_rays(
+        cam, settings.width, settings.height, jitter, dof_u,
+        pixel_idx=pixel_ids)
+    one = torch.ones(n, device=dev)
+    rb = torch.full((n,), settings.trace_depth, dtype=torch.int32,
+                    device=dev)
+    return (*origin, *direction, one, rb, lanes)
+
+
+def camera_paths(cam: CameraArrays, settings: RenderSettings, n: int,
+                 pixel_offset: int, irng) -> tuple:
+    """The engine's raygen: `raygen_plain`'s arguments and outputs. On the
+    fast RNG `irng` must carry the pool's pixel offset and the settings'
+    pixel map (the kernel keys the draws on the pixel ids of the rays).
+    CPU tensors: raygen_plain. CUDA tensors: one launch of csrc/raygen.cu
+    (kernels.camera), which reads the camera and any key tensor on the
+    device, with the gradients of raygen_plain (kernels.with_twin)."""
+    pmap = settings.pixel_map()
+    if irng.fast and (irng.offset != pixel_offset or irng.pixel_map != pmap):
+        raise ValueError(f"irng draws at pixel offset {irng.offset} with "
+                         f"pixel map {irng.pixel_map}, the pool is at "
+                         f"{pixel_offset} with the settings' {pmap}")
+    if cam.position.device.type != "cuda":
+        return raygen_plain(cam, settings, n, pixel_offset, irng)
+    if irng.fast:
+        draws = {"keys": (irng.depth_key(-1) if settings.jitter else None,
+                          irng.depth_key(-2) if settings.dof else None)}
+    else:
+        lanes = torch.arange(n, dtype=torch.int64, device=cam.position.device)
+
+        def pair(draw, depth):
+            return tuple(p.contiguous() for p in draw(depth, lanes, 2))
+
+        draws = {"planes": (
+            pair(irng.normals, -1) if settings.jitter else None,
+            pair(irng.uniforms, -2) if settings.dof else None)}
+    return kernels.with_twin(
+        lambda *c: kernels.camera(
+            CameraArrays(*c), settings.width, settings.height,
+            settings.trace_depth, n, offset=pixel_offset, pixel_map=pmap,
+            **draws),
+        lambda *c: raygen_plain(CameraArrays(*c), settings, n, pixel_offset,
+                                irng),
+        *(getattr(cam, f.name) for f in dataclasses.fields(cam)))

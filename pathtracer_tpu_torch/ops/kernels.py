@@ -2,8 +2,9 @@
 
 The mesh-intersection kernels (csrc/cull.cu, stream.cu, packet.cu, wide.cu,
 brute.cu), the analytic closest hit (csrc/analytic.cu, launched here by
-`analytic`), shade (csrc/shade.cu, launched by `shade`) and the exclusive
-scan (csrc/scan.cu) are compiled by nvcc, one
+`analytic`), shade (csrc/shade.cu, launched by `shade`), raygen
+(csrc/raygen.cu, launched by `camera`) and the exclusive scan
+(csrc/scan.cu) are compiled by nvcc, one
 process a source, all started together, and linked into one shared library
 with a plain C interface, loaded with ctypes. The library is built on first
 use, from the package's sources only, into build/torch_kernels/ at the repo
@@ -35,12 +36,12 @@ kernel is its source, one entry there and its wrapper.
 
 No kernel has a backward of its own. `with_twin` gives a launch the
 gradients of its plain twin: the kernel runs forward, the backward runs
-the twin again on the saved inputs (ops/bsdf.py `shade_lanes` and
-ops/intersect.py `analytic_hit`). The others need none: as the Pallas
-kernels have no AD rule in the JAX package, the mesh intersectors that
-launch them return their hits as constants (ops/intersect.py
-`_constant`), and the scan only reorders lanes on the forward-only engine
-modes.
+the twin again on the saved inputs (ops/bsdf.py `shade_lanes`,
+ops/intersect.py `analytic_hit` and ops/camera.py `camera_paths`). The
+others need none: as the Pallas kernels have no AD rule in the JAX
+package, the mesh intersectors that launch them return their hits as
+constants (ops/intersect.py `_constant`), and the scan only reorders lanes
+on the forward-only engine modes.
 """
 from __future__ import annotations
 
@@ -66,6 +67,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 
 
 class Kernel(NamedTuple):
@@ -128,6 +130,13 @@ KERNELS = (
            [_I, _I] + [_P] * 6 + [_I] + [_P] * 9 + [_P] * 6
            + [_P, ctypes.c_uint, _P] + [_P] * 5 + [_I] + [_P] * 10 + [_I, _P],
            "pt_shade_lanes", "shade kernel"),
+    # device, flags, 7 camera tensors, the AA and lens keys (device, or
+    # null, and host), 4 threefry planes, width, height, offset, tile_h,
+    # tile_w, shards, n_local, granule, trace_depth, 9 outputs, n, stream
+    Kernel("camera", "raygen.cu",
+           [_I, _I] + [_P] * 7 + [_P, ctypes.c_uint] * 2 + [_P] * 4
+           + [_I, _I, _LL, _I, _I, _LL, _LL, _LL, _I] + [_P] * 9 + [_I, _P],
+           "pt_camera_paths", "raygen kernel"),
 )
 SOURCES = tuple(dict.fromkeys(k.source for k in KERNELS))
 LAUNCHES = dict.fromkeys((k.name for k in KERNELS), 0)
@@ -468,6 +477,90 @@ def shade(origin, direction, color, remaining_bounces, t, normal, mat_id,
                *(ptr(x) for x in (*origin, *direction, *color)),
                ptr(remaining_bounces), ptr(t), *(ptr(x) for x in normal),
                ptr(mat_id), key_dev, key_host, pix, *u, int(rr_on),
+               *(ptr(x) for x in outs), n)
+    return tuple(outs)
+
+
+# csrc/raygen.cu's template flags
+RAYGEN_JITTER, RAYGEN_DOF, RAYGEN_HASH, RAYGEN_TILE, RAYGEN_INTERLEAVE = (
+    1, 2, 4, 8, 16)
+CAMERA_SHAPES = {"position": (3,), "view": (3,), "up": (3,),
+                 "right": (3,), "pixel_length": (2,), "lens_radius": (),
+                 "focal_distance": ()}
+
+
+def camera(cam, width: int, height: int, trace_depth: int, n: int, *,
+           offset: int = 0, pixel_map=None, keys=None, planes=None):
+    """csrc/raygen.cu on CUDA tensors: the fresh path pool of `n` lanes from
+    global lane `offset` on, in one launch; the bits of ops/camera.py
+    raygen_plain. `cam`: CameraArrays, read on the device at every launch
+    (a captured graph sees the camera written in place). `pixel_map`: a
+    scene/types.py PixelMap, or None for the identity. The draws, each
+    None where it is off (jitter, DoF): `keys` (AA, lens), the depth keys
+    of the fast RNG (IterationRng.depth_key: a host int, or a 0-d int64
+    tensor on the camera's device that the kernel reads there), or
+    `planes` (AA, lens), each a pair of [n] float32 planes (threefry).
+    Returns (ox, oy, oz, dx, dy, dz, one, remaining_bounces int32, lane
+    int64), each a new tensor."""
+    dev = cam.position.device
+    if dev.type != "cuda":
+        raise ValueError(f"camera: the camera is on {dev}, expected a CUDA "
+                         "device")
+    for name, shape in CAMERA_SHAPES.items():
+        t = getattr(cam, name)
+        if t.device != dev or t.dtype != torch.float32 or (
+                tuple(t.shape) != shape) or not t.is_contiguous():
+            raise ValueError(f"camera: {name} must be a contiguous float32 "
+                             f"{list(shape)} tensor on {dev}")
+    if (keys is None) == (planes is None):
+        raise ValueError("camera: give the draws as keys or as planes")
+    flags = 0 if planes is not None else RAYGEN_HASH
+    null = ctypes.c_void_p(None)
+    key_args, plane_args = [null, 0, null, 0], [null] * 4
+    for k, (d, bit) in enumerate(zip(keys or planes,
+                                     (RAYGEN_JITTER, RAYGEN_DOF),
+                                     strict=True)):
+        if d is None:
+            continue
+        flags |= bit
+        if planes is not None:
+            if len(d) != 2:
+                raise ValueError("camera: a pair of draw planes")
+            check("camera", n, ray_a_f32=d[0], ray_b_f32=d[1])
+            if d[0].device != dev:
+                raise ValueError("camera: draw planes and camera on "
+                                 "different devices")
+            plane_args[2 * k:2 * k + 2] = (ptr(p) for p in d)
+        elif isinstance(d, torch.Tensor):
+            if d.dtype != torch.int64 or d.dim() != 0 or d.device != dev:
+                raise ValueError("camera: a tensor key must be a 0-d int64 "
+                                 "on the camera's device")
+            key_args[2 * k] = ptr(d)
+        else:
+            key_args[2 * k + 1] = int(d) & 0xFFFFFFFF
+    tile_h = tile_w = 0
+    if pixel_map is not None and pixel_map.tile is not None:
+        flags |= RAYGEN_TILE
+        tile_width, tile_h, tile_w = (int(v) for v in pixel_map.tile)
+        if (tile_width != width or tile_h <= 0 or tile_w <= 0
+                or width % tile_w or height % tile_h):
+            raise ValueError(f"camera: tile {pixel_map.tile} must divide "
+                             f"the {width}x{height} image")
+    shards = n_local = granule = 0
+    if pixel_map is not None and pixel_map.interleave is not None:
+        flags |= RAYGEN_INTERLEAVE
+        shards, n_local, granule = (int(v) for v in pixel_map.interleave)
+        if min(shards, n_local, granule) <= 0:
+            raise ValueError(f"camera: interleave {pixel_map.interleave}")
+    outs = [torch.empty(n, dtype=torch.float32, device=dev)
+            for _ in range(7)]
+    outs.append(torch.empty(n, dtype=torch.int32, device=dev))
+    outs.append(torch.empty(n, dtype=torch.int64, device=dev))
+    if n:
+        launch("camera", dev, flags,
+               *(ptr(getattr(cam, k)) for k in CAMERA_SHAPES), *key_args,
+               *plane_args, width, height, int(offset), tile_h, tile_w,
+               shards, n_local, granule, trace_depth,
                *(ptr(x) for x in outs), n)
     return tuple(outs)
 

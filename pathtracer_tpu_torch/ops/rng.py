@@ -33,6 +33,8 @@ import math
 
 import torch
 
+from ..scene.types import PixelMap
+
 M32 = 0xFFFFFFFF
 GOLDEN = 0x9E3779B9
 KEYED_DEPTHS = 64   # depth keys a tensor iteration makes at once (-2 on)
@@ -298,8 +300,7 @@ class IterationRng:
         else:
             self.iteration = int(iteration)
             self.keyed = None
-        self.pixel_map = pixel_map if pixel_map is not None else (
-            lambda lane: lane)
+        self.pixel_map = pixel_map if pixel_map is not None else PixelMap()
         self.offset = int(pixel_offset)
         self.key = None
         if not self.fast:

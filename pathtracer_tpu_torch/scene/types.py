@@ -213,6 +213,33 @@ class SceneArrays:
 
 
 @dataclasses.dataclass(frozen=True)
+class PixelMap:
+    """lane -> pixel id (RenderSettings.pixel_map): pure index math on ints,
+    numpy arrays or tensors of non-negative lanes. `interleave` (shards S,
+    lanes a shard n_local, granule G) or None: shard s's lane l is base lane
+    ((l // G) * S + s) * G + l % G. Then `tile` (image width, tile_h,
+    tile_w) or None: the tile-major base lane's row-major pixel. Two maps of
+    the same form compare equal (the identity is PixelMap())."""
+    tile: tuple | None = None
+    interleave: tuple | None = None
+
+    def __call__(self, lane):
+        if self.interleave is not None:
+            S, n_local, G = self.interleave
+            l, s = lane % n_local, lane // n_local
+            q, r = l // G, l % G
+            lane = (q * S + s) * G + r
+        if self.tile is None:
+            return lane
+        width, tile_h, tile_w = self.tile
+        tiles_x, tsz = width // tile_w, tile_h * tile_w
+        t, r = lane // tsz, lane % tsz
+        py = (t // tiles_x) * tile_h + r // tile_w
+        px = (t % tiles_x) * tile_w + r % tile_w
+        return py * width + px
+
+
+@dataclasses.dataclass(frozen=True)
 class RenderSettings:
     """Static, hashable render configuration (the JAX package's)."""
 
@@ -257,30 +284,19 @@ class RenderSettings:
     # inverts the composed map)
     shard_interleave: int | None = None
 
-    def pixel_map(self):
-        """lane -> pixel id function: the granule round-robin over
-        shard_interleave shards, then the tile map (identity when neither is
-        set). Pure index math on ints, numpy arrays or tensors of
-        non-negative lanes."""
-        if self.tile is None:
-            base = lambda lane: lane  # noqa: E731
-        else:
-            from ..ops.camera import tile_pixel_map
-            base = tile_pixel_map(self.width, self.height, *self.tile)
+    def pixel_map(self) -> "PixelMap":
+        """The lane -> pixel id map of these settings: the granule
+        round-robin over shard_interleave shards, then the tile map
+        (identity when neither is set)."""
+        tile = None if self.tile is None else (self.width, *self.tile)
         S = self.shard_interleave
         if not S or S <= 1:
-            return base
+            return PixelMap(tile)
         n_local = self.pixel_count // S
         # >= 32 granules a shard to average over, at most ~1k lanes a granule
         # to keep a shard's kernel blocks spatially coherent
         G = _granule(n_local, target=max(64, min(1024, n_local // 32)))
-
-        def m(lane):
-            l, s = lane % n_local, lane // n_local
-            q, r = l // G, l % G
-            return base((q * S + s) * G + r)
-
-        return m
+        return PixelMap(tile, (S, n_local, G))
 
     @property
     def pixel_count(self) -> int:

@@ -393,6 +393,8 @@ def test_port_launches_reads_the_kernels_by_name():
         _evt("void (anonymous namespace)::pt_shade_lanes<true, false, "
              "false, false, false>((anonymous namespace)::ShadeArgs)", 1.0,
              7),
+        _evt("void (anonymous namespace)::pt_camera_paths<true, true, true, "
+             "true, false>((anonymous namespace)::CameraArgs)", 1.0, 1),
         _evt("void cub::DeviceScanKernel<Policy>(int*)", 1.0, 3),
         _evt("void at::native::tensor_kernel_scan_innermost_dim<float>()",
              1.0, 3),
@@ -401,7 +403,8 @@ def test_port_launches_reads_the_kernels_by_name():
     ]
     assert port_launches(events, "cuda") == {
         "cull": 12, "stream": 8, "packet": 4, "wide_push": 2,
-        "wide_mask": 0, "brute": 1, "scan": 0, "analytic": 6, "shade": 7}
+        "wide_mask": 0, "brute": 1, "scan": 0, "analytic": 6, "shade": 7,
+        "camera": 1}
     assert sorted(k for _, k in PORT_KERNELS) == sorted(kernels.LAUNCHES)
 
 

@@ -322,6 +322,9 @@ def test_library_path_tracks_the_sources():
     path = kernels.library_path()
     assert path.startswith(kernels.BUILD_DIR)
     assert path == kernels.library_path()
+    # every source of csrc/ is in the table, so built and loaded
+    assert sorted(kernels.SOURCES) == sorted(
+        f for f in os.listdir(kernels.CSRC) if f.endswith(".cu"))
     for name in kernels.SOURCES:    # each notes the TPU kernel it replaces
         with open(f"{kernels.CSRC}/{name}") as f:
             assert "Replaces the TPU kernel" in f.read(), name
